@@ -81,7 +81,7 @@ def assemble_cascade(
         bank_features=bank_features, seed=seed,
     )
 
-    params = init_cascade_params(model, cfg, bank, seed=seed)
+    params = init_cascade_params(model, seed=seed)
     params = jax.tree.map(np.asarray, params)  # host-side for merging
 
     if clip_tree is not None:

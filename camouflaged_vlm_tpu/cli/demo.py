@@ -53,6 +53,9 @@ def main():
     p.add_argument("--tiny", action="store_true", help="tiny config (smoke test)")
     p.add_argument("--dtype", default="bfloat16")
     args = p.parse_args()
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     if not os.path.exists(args.image):
         p.error(f"--image {args.image!r} does not exist")  # before model assembly
@@ -83,10 +86,9 @@ def main():
 
     @jax.jit
     def run(params, inp, cimg, cmask):
-        return model.apply(
+        return model.infer_cascade(
             params, inp, cimg, cmask,
             bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"],
-            method=model.infer_cascade,
         )
 
     probs, pred, score = run(

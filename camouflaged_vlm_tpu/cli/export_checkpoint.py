@@ -6,7 +6,7 @@ tree carries the TrainState's `params`) and writes a `.pth` state dict in the
 layout the reference's own tooling saves/loads
 (`/root/reference/train_ovcos_maskdecoder_edge.py` `torch.save(model.state_dict())`
 / `/root/reference/test_ovcos_maskdecoder_edge.py` `load_state_dict`), so a
-model trained on TPU here can be evaluated or demoed with the reference's
+model trained here can be evaluated or demoed with the reference's
 CUDA stack — checkpoint interop in BOTH directions.
 
     python -m camouflaged_vlm_tpu.cli.export_checkpoint \
@@ -28,6 +28,9 @@ def main() -> None:
     p.add_argument("--strict", action="store_true",
                    help="fail if any mapped param is missing from the checkpoint")
     args = p.parse_args()
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     import numpy as np
     import torch

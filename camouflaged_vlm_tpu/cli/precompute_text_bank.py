@@ -22,24 +22,23 @@ import jax.numpy as jnp
 
 from ..data.ovcamo import TRAIN_CLASS_NAMES, TEST_CLASS_NAMES
 from ..data.templates import TEMPLATE_SETS
-from ..models.clip import AlphaClipConfig, ClipTextTower, tokenize
+from ..models.clip import AlphaClipConfig, tokenize
+from ..models.clip import model as clip_model
 from ..io import load_openai_clip_state_dict
 from ..io.convert import convert_openai_clip
 from ..utils.logging import log
 
 
 def _make_encoder(clip_cfg: AlphaClipConfig, text_params: dict, token_embedding):
-    tower = ClipTextTower(clip_cfg)
-
     @jax.jit
     def encode(prompt_embeds, eot):
         # no deep prompts: plain CLIP encode_text semantics
-        return tower.apply({"params": text_params}, prompt_embeds, eot, [])
+        return clip_model.text(clip_cfg, text_params, prompt_embeds, eot, [])
 
     def encode_prompts(prompts):
         # Pad the prompt count up to a power-of-two bucket so varying
         # per-class CuPL list lengths hit a handful of compiled shapes, not
-        # one multi-minute remote compile per distinct count; the padded
+        # one compile per distinct count; the padded
         # rows are sliced off before the caller's mean.
         n = len(prompts)
         if n == 0:
@@ -145,6 +144,9 @@ def main():
     p.add_argument("--classnames", default=None, help="comma-separated override")
     p.add_argument("--out", required=True, help=".npy output path")
     args = p.parse_args()
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     clip_cfg = AlphaClipConfig.vit_l_14_336()
     sd = load_openai_clip_state_dict(args.clip_ckpt)
@@ -166,7 +168,7 @@ def main():
     # fixed mode order is imagenet80 -> camoprompts -> CuPL-GPT ->
     # attributes (`alphaCLIP.py:131-242` — each `if use_*` block folds into
     # the accumulator in that sequence), so the chain follows that order
-    # regardless of how --templates is spelled (ADVICE round-2).
+    # regardless of how --templates is spelled.
     ref_order = ["imagenet80", "camoprompts", "__gpt__", "attributes"]
     dropped = [m for m in modes if m not in ref_order]
     if dropped:

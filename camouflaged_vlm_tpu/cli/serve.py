@@ -204,6 +204,9 @@ def main():
         "lossless for the 8-bit PNG response",
     )
     args = p.parse_args()
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     classnames = args.classnames.split(",") if args.classnames else TEST_CLASS_NAMES
     dtype = jnp.bfloat16 if args.dtype == "bfloat16" else jnp.float32

@@ -1,6 +1,6 @@
 """MaPLe prompt-learner training CLI.
 
-TPU-native equivalent of the reference's dassl trainer
+Equivalent of the reference's dassl trainer
 `MaPLeAlphaCLIP(TrainerX)` (`/root/reference/cocotrainers/mapleAlphaCLIP.py:300-440`)
 — the tool that produced the shipped `model-best.pth.tar` the cascade loads.
 Freezes everything except the multi-modal prompt learner and trains it with
@@ -39,7 +39,7 @@ from .common import assemble_cascade
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--dataset-info", required=True)
-    p.add_argument("--save-dir", default="./save/maple_tpu")
+    p.add_argument("--save-dir", default="./save/maple")
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--lr", type=float, default=0.0035)
@@ -52,6 +52,9 @@ def main():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true")
     args = p.parse_args()
+    from ..utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
 
     os.makedirs(args.save_dir, exist_ok=True)
     set_log_file(os.path.join(args.save_dir, "log.txt"))
@@ -85,21 +88,10 @@ def main():
         steps_per_epoch=steps_per_epoch,
         warmup_epochs=args.warmup_epochs,
     )
-    # Drive the cascade's CustomClip submodule; only clip_model/prompt_learner
+    # Drive the cascade's CustomClip pass; only clip_model/prompt_learner
     # paths are trainable.
-    clip_call = lambda m, img, alpha, pre, suf, eot, feats: m.clip_model(
-        img, alpha, pre, suf, eot, feats
-    )
-
-    class _ClipView:
-        """Adapter giving make_maple_train_step a CustomClip-shaped apply."""
-
-        @staticmethod
-        def apply(p, img, alpha, pre, suf, eot, feats):
-            return model.apply(p, img, alpha, pre, suf, eot, feats, method=clip_call)
-
     state = create_train_state(params, tx, MAPLE_TRAINABLE_SUBTREES)
-    train_step = jax.jit(make_maple_train_step(_ClipView, tx))
+    train_step = jax.jit(make_maple_train_step(model.clip_forward, tx))
 
     static_bank = {k: jnp.asarray(np.asarray(v)) for k, v in bank.items()}
     rng = np.random.default_rng(args.seed)

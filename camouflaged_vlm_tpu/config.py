@@ -11,7 +11,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import jax.numpy as jnp
-import yaml
 
 from .models import CascadeConfig, SamEncoderConfig, MaskDecoderConfig
 from .models.two_way_transformer import TwoWayTransformerConfig
@@ -39,7 +38,7 @@ def _from_reference_yaml(raw: Dict[str, Any]) -> Tuple[CascadeConfig, Dict[str, 
     (consumed by `/root/reference/train_ovcos_maskdecoder_edge.py:380-400`
     via its DotDict plumbing) loads directly: `--config` auto-detects the
     format, so switching frameworks does not require rewriting configs.
-    TPU numerics defaults (bfloat16, flash kernels) apply — pass a re-keyed
+    this framework's numerics defaults (bfloat16, fused blocks) apply — pass a re-keyed
     native yaml to override those.
     """
     m = raw["model"]["args"]
@@ -112,6 +111,8 @@ def cascade_config_from_yaml(path: str) -> Tuple[CascadeConfig, Dict[str, Any]]:
     """Returns (CascadeConfig, train-hyperparameter dict). Accepts BOTH the
     native re-keyed format (configs/*.yaml here) and the reference's own
     format (auto-detected by its `model.args` nesting)."""
+    import yaml
+
     with open(path) as f:
         raw = yaml.safe_load(f)
     m = raw["model"]

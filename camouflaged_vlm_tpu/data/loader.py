@@ -15,7 +15,6 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
-from PIL import Image
 
 from . import native_pipeline as npp
 from .ovcamo import OVCamoIndex, OVCamoSample
@@ -61,6 +60,8 @@ def _load_eval_sample(
     raw_uint8: bool = False,
     use_native: bool = False,
 ) -> EvalSample:
+    from PIL import Image
+
     if use_native:
         pair = npp.decode_pair(sample.image_path, sample.mask_path)
         if pair is not None:
@@ -183,6 +184,8 @@ def iter_train_batches(
     BEFORE the flip (the reference flips after computing clip tensors), flip
     probability 0.5, nearest-resized GT.
     """
+    from PIL import Image
+
     order = rng.permutation(len(index.samples))
     # Flip decisions are drawn on the main thread (numpy Generator is not
     # thread-safe; concurrent rng.random() from pool workers would make the
@@ -259,6 +262,8 @@ def iter_maple_train_batches(
     `parse_batch_train` :395-404), which conditions Alpha-CLIP on the
     ground-truth mask and trains the prompt learner with cross-entropy.
     """
+    from PIL import Image
+
     order = rng.permutation(len(index.samples))
     flips = rng.random(len(order)) < 0.5  # main-thread draw (see above)
 

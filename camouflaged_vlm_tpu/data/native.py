@@ -1,8 +1,8 @@
 """ctypes binding for libcvtpre — the native host-preprocessing library.
 
 The reference delegates host preprocessing to torch's C++ DataLoader workers
-wrapping Pillow's C decoders (`/root/reference/train_ovcos_maskdecoder_edge.py:66`,
-`/root/reference/datasets/wrappers.py:22-35`).  This module is the tpu-native
+wrapping Pillow's C decoders (`train_ovcos_maskdecoder_edge.py:66`,
+`datasets/wrappers.py:22-35`).  This module is the native
 equivalent: a small plain-C library (csrc/preproc) that fuses decode ->
 rot90 -> resize -> normalize per sample with zero Python-object traffic, and
 releases the GIL for the whole sample (ctypes calls drop the GIL), so the

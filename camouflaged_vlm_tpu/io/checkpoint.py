@@ -12,10 +12,11 @@ import os
 from typing import Any, Optional
 
 import jax
-import orbax.checkpoint as ocp
 
 
 def save_checkpoint(path: str, state: Any, force: bool = True) -> None:
+    import orbax.checkpoint as ocp
+
     path = os.path.abspath(path)
     ckptr = ocp.StandardCheckpointer()
     ckptr.save(path, state, force=force)
@@ -29,6 +30,7 @@ def restore_checkpoint_host(path: str) -> Any:
     fail — to reconstruct)."""
     import jax.tree_util as jtu
     import numpy as np
+    import orbax.checkpoint as ocp
 
     path = os.path.abspath(path)
     ckptr = ocp.PyTreeCheckpointer()
@@ -42,16 +44,15 @@ def restore_checkpoint_host(path: str) -> Any:
 
 
 def restore_train_params_host(path: str) -> Any:
-    """Restore a `cli/train.py` checkpoint as a host-numpy flax params tree.
+    """Restore a `cli/train.py` checkpoint as a host-numpy params tree.
 
     The saved TrainState keeps `trainable`/`frozen` as FLAT dicts whose tuple
     keys orbax stringifies on save; this helper owns that format (the repr
-    round-trip + unflatten) so its consumers — `cli/export_checkpoint` and
-    `scripts/ab_trained_numeric.py` — cannot drift. A bare params tree (or a
+    round-trip + unflatten) so its consumers cannot drift. A bare params tree (or a
     `{'params': ...}` variables dict) passes through unchanged."""
     import ast
 
-    from flax import traverse_util
+    from ..utils.tree import unflatten_dict
 
     tree = restore_checkpoint_host(path)
     if isinstance(tree, dict) and "trainable" in tree and "frozen" in tree:
@@ -60,11 +61,13 @@ def restore_train_params_host(path: str) -> Any:
             for k, v in tree[part].items():
                 key = ast.literal_eval(k) if isinstance(k, str) else k
                 flat[key if isinstance(key, tuple) else (key,)] = v
-        return traverse_util.unflatten_dict(flat)
+        return unflatten_dict(flat)
     return tree
 
 
 def restore_checkpoint(path: str, target: Optional[Any] = None) -> Any:
+    import orbax.checkpoint as ocp
+
     path = os.path.abspath(path)
     ckptr = ocp.StandardCheckpointer()
     if target is not None:

@@ -1,17 +1,17 @@
-"""Torch-layout -> flax-tree weight conversion.
+"""Torch-layout -> parameter-tree weight conversion.
 
 A declarative key map covers every parameter of the cascade; each entry is
-(torch_key, flax_path, kind) where `kind` names the tensor transform:
+(torch_key, param_path, kind) where `kind` names the tensor transform:
 
   linear_w  (out,in)        -> kernel (in,out)        transpose
   convT_w   (in,out,kh,kw)  -> kernel (kh,kw,out,in)  transpose(2,3,1,0)
-            (flax ConvTranspose modules use transpose_kernel=True)
+            (models/layers.conv_transpose uses transpose_kernel=True)
   conv_w    (out,in,kh,kw)  -> kernel (kh,kw,in,out)  transpose(2,3,1,0)
   row0      (1,D) embedding -> (D,)                   squeeze
   direct    identical layout
 
 The map is generated from the model config, so shape checks are exact and a
-coverage test guarantees every flax param is written (tests/test_convert.py).
+coverage test guarantees every param is written (tests/test_convert.py).
 
 Reference torch layouts: `/root/reference/models/sam_maskdecoder_edge.py`
 (cascade), `/root/reference/models/mmseg/models/sam/*` (SAM modules),
@@ -29,7 +29,7 @@ import numpy as np
 from ..models.cascade import CascadeConfig
 from ..models.clip.model import AlphaClipConfig
 
-KeyMapEntry = Tuple[str, str, str]  # (torch_key, flax_path, kind)
+KeyMapEntry = Tuple[str, str, str]  # (torch_key, param_path, kind)
 
 
 def _transform(kind: str, v: np.ndarray) -> np.ndarray:
@@ -38,7 +38,7 @@ def _transform(kind: str, v: np.ndarray) -> np.ndarray:
     if kind == "conv_w":
         return np.ascontiguousarray(v.transpose(2, 3, 1, 0))
     if kind == "convT_w":
-        # torch (in,out,kh,kw) -> flax ConvTranspose(transpose_kernel=True)
+        # torch (in,out,kh,kw) -> (kh,kw,out,in) for transpose_kernel=True
         # kernel layout (kh,kw,out,in) — verified vs torch in test_convert.py.
         return np.ascontiguousarray(v.transpose(2, 3, 1, 0))
     if kind == "row0":
@@ -275,7 +275,7 @@ def convert_state_dict(
     key_map: Iterable[KeyMapEntry],
     strict: bool = False,
 ) -> Tuple[Dict, List[str], List[str]]:
-    """Apply a key map. Returns (flax tree, missing torch keys, used keys)."""
+    """Apply a key map. Returns (param tree, missing torch keys, used keys)."""
     tree: Dict = {}
     missing, used = [], []
     for tk, fp, kind in key_map:
@@ -377,8 +377,8 @@ def export_state_dict(
     key_map: Iterable[KeyMapEntry],
     strict: bool = False,
 ) -> Tuple[Dict[str, np.ndarray], List[str]]:
-    """Inverse of `convert_state_dict`: flax param tree -> torch-layout
-    state dict (numpy, fp32). Returns (state dict, flax paths missing from
+    """Inverse of `convert_state_dict`: param tree -> torch-layout
+    state dict (numpy, fp32). Returns (state dict, param paths missing from
     the tree). Every transform kind is exactly invertible, so
     convert(export(tree)) == tree bit-for-bit (tests/test_convert.py)."""
     sd: Dict[str, np.ndarray] = {}
@@ -409,7 +409,7 @@ def export_cascade_checkpoint(
 
 
 def merge_into_params(params: Dict, tree: Dict) -> Dict:
-    """Recursively overwrite `params` (a flax 'params' collection) with
+    """Recursively overwrite `params` (the 'params' entry of a variables dict) with
     converted leaves, checking shapes."""
     import jax
 

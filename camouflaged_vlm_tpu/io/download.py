@@ -1,6 +1,6 @@
 """Model-zoo checkpoint resolution: name -> cached, checksum-verified file.
 
-TPU-side equivalent of the reference's downloader
+Equivalent of the reference's downloader
 (`/root/reference/alpha_clip_rw/alpha_clip.py:30-75,102-135`): a model-name
 registry whose URLs embed the expected SHA256 as the second-to-last path
 segment (OpenAI's public CLIP release layout), a cache directory keyed by

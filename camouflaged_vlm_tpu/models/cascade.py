@@ -14,10 +14,15 @@ jittable program:
     predicted alpha -> class logits.
 
 `infer_cascade` runs both stages in a single XLA program — the mask never
-leaves HBM between stages, unlike the reference which round-trips through
+leaves device memory between stages, unlike the reference which round-trips through
 the eval loop. Class-split data (prompt bank prefix/suffix/EOT indices and
 the frozen text-feature bank) are inputs, so the same compiled program serves
 train/test splits of the same class count.
+
+`OVCOSCascade` holds only the config. `init(key)` returns the variables dict
+`{"params": ...}`; every other method is a pure function whose first
+argument is that dict (optionally with the inference-only "relcache" entry,
+see `factory.attach_rel_cache`).
 """
 
 from __future__ import annotations
@@ -25,15 +30,16 @@ from __future__ import annotations
 import dataclasses
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
-from ..ops.norms import LayerNormFP32
-from ..ops.resize import resize_bilinear
-from .sam_encoder import SamEncoderConfig, ImageEncoderViT
-from .mask_decoder import MaskDecoderConfig, EdgeMaskDecoder
+from . import layers as L
+from . import mask_decoder, position_embedding, sam_encoder
+from .clip import AlphaClipConfig
+from .clip import custom_clip
+from .mask_decoder import MaskDecoderConfig
+from .position_embedding import random_position_embedding
+from .sam_encoder import SamEncoderConfig
 from .two_way_transformer import TwoWayTransformerConfig
-from .position_embedding import PositionEmbeddingRandom
-from .clip import AlphaClipConfig, CustomClip
+from ..ops.resize import resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,53 +87,74 @@ class CascadeConfig:
         )
 
 
-class OVCOSCascade(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class OVCOSCascade:
     cfg: CascadeConfig
 
-    def setup(self):
+    def init(self, key) -> dict:
+        """Random-weight variables {"params": ...} (real runs load a
+        checkpoint into this tree)."""
         cfg = self.cfg
         assert cfg.decoder.transformer_dim == cfg.prompt_embed_dim
-        self.image_encoder = ImageEncoderViT(cfg.encoder)
-        self.mask_decoder = EdgeMaskDecoder(cfg.decoder)
-        self.pe_layer = PositionEmbeddingRandom(cfg.prompt_embed_dim // 2)
-        self.no_mask_embed = self.param(
-            "no_mask_embed",
-            nn.initializers.normal(1.0),
-            (cfg.prompt_embed_dim,),
-            jnp.float32,
-        )
-        self.clip_model = CustomClip(cfg.clip)
-
-        dt = cfg.decoder.dtype
-        # sam_visual_proj: LN -> Linear(768->256) -> LN   (reference :166-170)
-        self.visual_proj_ln1 = LayerNormFP32(eps=1e-5)
-        self.visual_proj_dense = nn.Dense(cfg.prompt_embed_dim, dtype=dt)
-        self.visual_proj_ln2 = LayerNormFP32(eps=1e-5)
-        # sam_text_proj: LN -> Linear(768->256)            (reference :172-175)
-        self.text_proj_ln = LayerNormFP32(eps=1e-5)
-        self.text_proj_dense = nn.Dense(cfg.prompt_embed_dim, dtype=dt)
+        k = L.Keys(key)
+        C = cfg.prompt_embed_dim
+        E = cfg.clip.embed_dim
+        return {"params": {
+            "image_encoder": sam_encoder.init(cfg.encoder, k()),
+            "mask_decoder": mask_decoder.init(cfg.decoder, k()),
+            "pe_layer": position_embedding.init(C // 2, k()),
+            "no_mask_embed": L.normal(k(), (C,), 1.0),
+            "clip_model": custom_clip.init(cfg.clip, k()),
+            # sam_visual_proj: LN -> Linear(768->256) -> LN   (reference :166-170)
+            "visual_proj_ln1": L.ln_init(E),
+            "visual_proj_dense": L.dense_init(k(), E, C),
+            "visual_proj_ln2": L.ln_init(C),
+            # sam_text_proj: LN -> Linear(768->256)            (reference :172-175)
+            "text_proj_ln": L.ln_init(E),
+            "text_proj_dense": L.dense_init(k(), E, C),
+        }}
 
     # ----- pieces -----
 
-    def _sparse_embeddings(self, image_feat, text_feat):
-        """(B,1,768) x2 -> (B,2,256) CLIP-conditioned sparse prompts."""
-        v = self.visual_proj_ln2(
-            self.visual_proj_dense(self.visual_proj_ln1(image_feat))
+    def encode_image(self, variables, inp):
+        """SAM encoder -> (features NHWC, global-block tokens)."""
+        cache = variables.get("relcache", {}).get("image_encoder")
+        return sam_encoder.apply(
+            self.cfg.encoder, variables["params"]["image_encoder"], inp,
+            interm=True, relcache=cache,
         )
-        t = self.text_proj_dense(self.text_proj_ln(text_feat))
+
+    def classify(self, variables, clip_image, clip_mask, text_features):
+        return custom_clip.classify(
+            self.cfg.clip, variables["params"]["clip_model"],
+            clip_image, clip_mask, text_features,
+        )
+
+    def _sparse_embeddings(self, p, image_feat, text_feat):
+        """(B,1,768) x2 -> (B,2,256) CLIP-conditioned sparse prompts."""
+        dt = self.cfg.decoder.dtype
+        v = L.ln(p["visual_proj_ln1"], image_feat, 1e-5)
+        v = L.ln(p["visual_proj_ln2"], L.dense(p["visual_proj_dense"], v, dt), 1e-5)
+        t = L.dense(p["text_proj_dense"], L.ln(p["text_proj_ln"], text_feat, 1e-5), dt)
         return jnp.concatenate([v, t], axis=1)
 
-    def _decode(self, features, interm, sparse):
+    def decode(self, variables, features, interm, image_feat, text_feat):
+        """Mask decoder on encoder features + CLIP features ->
+        (masks (B,H,W,1) logits, edges (B,H,W,1), iou (B,1))."""
         cfg = self.cfg
+        p = variables["params"]
+        sparse = self._sparse_embeddings(p, image_feat, text_feat)
         B = features.shape[0]
         g = cfg.embedding_size
         dense = jnp.broadcast_to(
-            self.no_mask_embed[None, None, None, :],
+            p["no_mask_embed"][None, None, None, :],
             (B, g, g, cfg.prompt_embed_dim),
         ).astype(features.dtype)
-        image_pe = self.pe_layer(g)
-        masks, edges, iou = self.mask_decoder(
-            features, image_pe, sparse, dense,
+        image_pe = random_position_embedding(
+            p["pe_layer"]["positional_encoding_gaussian_matrix"], g
+        )
+        masks, edges, iou = mask_decoder.apply(
+            cfg.decoder, p["mask_decoder"], features, image_pe, sparse, dense,
             multimask_output=False, interm_embeddings=interm,
         )
         # (B, 1, H/4, W/4) logits -> NHWC -> full resolution
@@ -141,57 +168,74 @@ class OVCOSCascade(nn.Module):
 
     # ----- entry points -----
 
+    def clip_forward(self, variables, clip_image, clip_mask, prefix, suffix,
+                     eot_indices, bank_features):
+        """The CustomCLIP pass alone (MaPLe prompt training): (image
+        features, picked text features, pred, logits)."""
+        return custom_clip.apply(
+            self.cfg.clip, variables["params"]["clip_model"],
+            clip_image, clip_mask, prefix, suffix, eot_indices, bank_features,
+        )
+
     def stage1(
-        self, inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
+        self, variables, inp, clip_image, clip_mask, prefix, suffix,
+        eot_indices, bank_features,
     ):
         """Segmentation pass. inp: (B,1024,1024,3); clip_*: (B,336,336,C).
 
         Returns (mask_logits (B,H,W,1), edges (B,H,W,1), iou (B,1),
         clip pred ids (B,), clip logits (B,N)).
         """
-        features, interm = self.image_encoder(inp, interm=True)
-        image_feat, text_feat, pred, score = self.clip_model(
-            clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
+        features, interm = self.encode_image(variables, inp)
+        image_feat, text_feat, pred, score = self.clip_forward(
+            variables, clip_image, clip_mask, prefix, suffix, eot_indices,
+            bank_features,
         )
-        sparse = self._sparse_embeddings(image_feat, text_feat)
-        masks, edges, iou = self._decode(features, interm, sparse)
+        masks, edges, iou = self.decode(
+            variables, features, interm, image_feat, text_feat
+        )
         return masks, edges, iou, pred, score
 
-    def __call__(self, inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features):
+    def __call__(self, variables, inp, clip_image, clip_mask, prefix, suffix,
+                 eot_indices, bank_features):
         """Training forward: mask + edge predictions at full resolution."""
-        masks, edges, iou, _, _ = self.stage1(
-            inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
+        masks, edges, _, _, _ = self.stage1(
+            variables, inp, clip_image, clip_mask, prefix, suffix,
+            eot_indices, bank_features,
         )
         return masks, edges
 
-    def infer_test(
-        self, inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
-    ):
+    def infer_test(self, variables, inp, clip_image, clip_mask, prefix, suffix,
+                   eot_indices, bank_features):
         """Reference `infer_test` equivalent: stage-1 mask logits only."""
         masks, _, _, _, _ = self.stage1(
-            inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
+            variables, inp, clip_image, clip_mask, prefix, suffix,
+            eot_indices, bank_features,
         )
         return masks
 
-    def infer_cascade(
-        self, inp, clip_image, clip_mask, prefix, suffix, eot_indices, bank_features
-    ):
+    def infer_cascade(self, variables, inp, clip_image, clip_mask, prefix,
+                      suffix, eot_indices, bank_features):
         """Full fused pipeline: stage-1 mask + stage-2 open-vocab class.
 
         Returns (mask_probs (B,H,W,1), pred_class (B,), class_logits (B,N)).
         """
         text_features = self.encode_class_text_features(
-            prefix, suffix, eot_indices, bank_features
+            variables, prefix, suffix, eot_indices, bank_features
         )
-        return self.infer_cascade_with_text(inp, clip_image, clip_mask, text_features)
+        return self.infer_cascade_with_text(
+            variables, inp, clip_image, clip_mask, text_features
+        )
 
-    def encode_class_text_features(self, prefix, suffix, eot_indices, bank_features):
+    def encode_class_text_features(self, variables, prefix, suffix, eot_indices,
+                                   bank_features):
         """Per-class-split text features (image-independent; hoist at eval)."""
-        return self.clip_model.encode_class_text_features(
-            prefix, suffix, eot_indices, bank_features
+        return custom_clip.encode_class_text_features(
+            self.cfg.clip, variables["params"]["clip_model"],
+            prefix, suffix, eot_indices, bank_features,
         )
 
-    def forward_with_text(self, inp, clip_image, clip_mask, text_features):
+    def forward_with_text(self, variables, inp, clip_image, clip_mask, text_features):
         """Training forward with PRECOMPUTED per-class text features.
 
         Exact under the production freeze rule: the text tower and prompt
@@ -202,15 +246,17 @@ class OVCOSCascade(nn.Module):
         61-prompt text transformer from every step (the reference re-runs
         it every step). Gradient equality with the non-hoisted forward is
         pinned in tests/test_train.py."""
-        features, interm = self.image_encoder(inp, interm=True)
-        image_feat, text_feat, _, _ = self.clip_model.classify(
-            clip_image, clip_mask, text_features
+        features, interm = self.encode_image(variables, inp)
+        image_feat, text_feat, _, _ = self.classify(
+            variables, clip_image, clip_mask, text_features
         )
-        sparse = self._sparse_embeddings(image_feat, text_feat)
-        masks, edges, _ = self._decode(features, interm, sparse)
+        masks, edges, _ = self.decode(
+            variables, features, interm, image_feat, text_feat
+        )
         return masks, edges
 
-    def infer_cascade_with_text(self, inp, clip_image, clip_mask, text_features):
+    def infer_cascade_with_text(self, variables, inp, clip_image, clip_mask,
+                                text_features):
         """Fused pipeline with precomputed per-class text features.
 
         At inference the text tower is class-split-constant, so callers encode
@@ -218,13 +264,14 @@ class OVCOSCascade(nn.Module):
         reference recomputes the full text transformer every image.
         """
         cfg = self.cfg
-        features, interm = self.image_encoder(inp, interm=True)
-        image_feat, text_feat, _, _ = self.clip_model.classify(
-            clip_image, clip_mask, text_features
+        features, interm = self.encode_image(variables, inp)
+        image_feat, text_feat, _, _ = self.classify(
+            variables, clip_image, clip_mask, text_features
         )
-        sparse = self._sparse_embeddings(image_feat, text_feat)
-        masks, _, _ = self._decode(features, interm, sparse)
+        masks, _, _ = self.decode(
+            variables, features, interm, image_feat, text_feat
+        )
         probs = jax.nn.sigmoid(masks.astype(jnp.float32))
         alpha = resize_bilinear(probs, cfg.clip_size, cfg.clip_size)
-        _, _, pred, score = self.clip_model.classify(clip_image, alpha, text_features)
+        _, _, pred, score = self.classify(variables, clip_image, alpha, text_features)
         return probs, pred, score

@@ -1,15 +1,8 @@
 from .tokenizer import ClipTokenizer, tokenize
-from .model import (
-    AlphaClipConfig,
-    AlphaClipVisionTower,
-    ClipTextTower,
-    build_causal_mask,
-)
+from .model import AlphaClipConfig, build_causal_mask
 from .prompt_learner import (
     PromptLearnerConfig,
-    MultiModalPromptLearner,
     ClassPromptBank,
     build_class_prompt_bank,
     ctx_init_embedding,
 )
-from .custom_clip import CustomClip

@@ -1,6 +1,7 @@
 """Alpha-CLIP vision/text transformers with MaPLe deep prompting.
 
-Re-design of `/root/reference/alpha_clip_rw/model.py` for TPU:
+Re-design of the upstream `alpha_clip_rw/model.py` as plain functions over
+parameter dicts:
 
   * `VisionTransformer_MaPLe` (:507-563): RGB patch conv + 1-channel alpha
     patch conv summed, class token, learned positional embedding, 4 shallow
@@ -11,9 +12,9 @@ Re-design of `/root/reference/alpha_clip_rw/model.py` for TPU:
     tokens [1 : 1+n_ctx] in layers 1..8, EOT-token pooling via argmax of the
     token ids, projection to the shared space.
 
-TPU-first choices: batch-first (B, L, D) layouts (the reference permutes to
-LND for torch's MHA; XLA prefers leading batch), one fused qkv projection,
-fp32 softmax, static prompt splicing (pure slice+concat — no dynamic shapes).
+Choices: batch-first (B, L, D) layouts (the reference permutes to LND for
+torch's MHA; XLA prefers leading batch), one fused qkv projection, fp32
+softmax, static prompt splicing (pure slice+concat — no dynamic shapes).
 """
 
 from __future__ import annotations
@@ -23,15 +24,10 @@ from typing import Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
-from ...ops.norms import LayerNormFP32
-from ...ops.flash_attention import flash_qkv_packed_plain
-from ...ops.linear import (
-    ln_linear_act_bt,
-    ln_mlp_residual_bt,
-    proj_rows,
-)
+from .. import layers as L
+from ...ops.attention import qkv_packed_plain
+from ...ops.linear import ln_linear_act_bt, ln_mlp_residual_bt, proj_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,8 +50,8 @@ class AlphaClipConfig:
     prompt_depth: int = 9   # layers 0..8 carry prompts (8 deep replacements)
     # numerics
     dtype: jnp.dtype = jnp.float32
-    # Pallas fused path (qkv/attention/proj/MLP kernels). False = pure XLA
-    # formulation — the on-TPU reference for kernel equivalence checks.
+    # fused block order (LN1 + qkv, packed attention, projection + residual,
+    # LN2 + MLP + residual). False = the unfused per-layer formulation.
     fused: bool = True
 
     @property
@@ -87,186 +83,75 @@ def build_causal_mask(length: int) -> jnp.ndarray:
     return jnp.triu(mask, k=1)
 
 
-class PallasClipProj(nn.Module):
-    """Output projection consuming the attention kernel's d-major
-    (B, 1, heads*d, S) output via `proj_rows` (param tree identical to
-    nn.Dense); optional fused residual epilogue."""
+def init_resblock(key, dim: int) -> dict:
+    k = L.Keys(key)
+    return {
+        "ln_1": L.ln_init(dim),
+        "attn": {"in_proj": L.dense_init(k(), dim, 3 * dim),
+                 "out_proj": L.dense_init(k(), dim, dim)},
+        "ln_2": L.ln_init(dim),
+        "mlp": {"c_fc": L.dense_init(k(), dim, 4 * dim),
+                "c_proj": L.dense_init(k(), 4 * dim, dim)},
+    }
 
-    features: int
-    dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(
-        self, x: jnp.ndarray, res: Optional[jnp.ndarray] = None
-    ) -> jnp.ndarray:
-        kernel = self.param(
-            "kernel", nn.initializers.lecun_normal(),
-            (x.shape[2], self.features), jnp.float32,
+def _attention(p, x, num_heads, dtype, attn_mask):
+    """Fused-qkv multi-head attention (reference `Attention`, model.py:176-256)."""
+    B, L_, dim = x.shape
+    head_dim = dim // num_heads
+    scale = head_dim ** -0.5
+    qkv = L.dense(p["in_proj"], x, dtype)
+    qkv = qkv.reshape(B, L_, 3, num_heads, head_dim).transpose(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    logits = jnp.einsum(
+        "bhqc,bhkc->bhqk", q * scale, k, preferred_element_type=jnp.float32,
+    )
+    if attn_mask is not None:
+        logits = logits + attn_mask
+    probs = jax.nn.softmax(logits, axis=-1).astype(v.dtype)
+    out = jnp.einsum("bhqk,bhkc->bhqc", probs, v, preferred_element_type=jnp.float32)
+    out = out.astype(x.dtype).transpose(0, 2, 1, 3).reshape(B, L_, dim)
+    return L.dense(p["out_proj"], out, dtype)
+
+
+def resblock(p, x, num_heads: int, dtype, fused: bool,
+             attn_mask: Optional[jnp.ndarray] = None):
+    """Pre-norm residual attention block shared by both towers.
+
+    Fused order (`fused`, no mask): ln_1 rides ahead of the qkv projection,
+    the packed attention feeds the projection with the residual added in
+    its epilogue, and LN2 + MLP + residual run as one step."""
+    B, L_, dim = x.shape
+    if fused and attn_mask is None and num_heads % 8 == 0:
+        head_dim = dim // num_heads
+        a = p["attn"]
+        qkv3d = ln_linear_act_bt(
+            x, p["ln_1"]["scale"][None], p["ln_1"]["bias"][None],
+            a["in_proj"]["kernel"].astype(dtype),
+            a["in_proj"]["bias"].astype(dtype)[None],
+            eps=1e-5, activation=None,
         )
-        bias = self.param("bias", nn.initializers.zeros, (self.features,), jnp.float32)
-        b = bias.astype(self.dtype)[None]
-        return proj_rows(x, kernel.astype(self.dtype), b, res)
-
-
-class ClipAttention(nn.Module):
-    """Fused-qkv multi-head attention (reference `Attention`, model.py:176-256).
-
-    Fused mode (`ln` given): x is the block's RAW input — ln_1 folds into the
-    qkv matmul prologue and `residual` into the projection epilogue."""
-
-    dim: int
-    num_heads: int
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(
-        self,
-        x: jnp.ndarray,
-        attn_mask: Optional[jnp.ndarray] = None,
-        ln: Optional[tuple] = None,
-        residual: Optional[jnp.ndarray] = None,
-    ):
-        B, L, _ = x.shape
-        head_dim = self.dim // self.num_heads
-        scale = head_dim ** -0.5
-        # Fused TPU path (vision tower: no mask): Pallas qkv matmul -> packed
-        # plain-softmax attention -> head-consuming projection; zero XLA
-        # transposes/copies (same design as the SAM encoder, sam_encoder.py).
-        if (
-            attn_mask is None
-            and ln is not None
-            and self.num_heads % 8 == 0
-            and (8 * head_dim) % 128 == 0
-        ):
-            g1, be1 = ln
-            wq, bq = _ParamsDense(self.dim, 3 * self.dim, name="in_proj")()
-            qkv3d = ln_linear_act_bt(
-                x, g1[None], be1[None],
-                wq.astype(self.dtype), bq.astype(self.dtype)[None],
-                eps=1e-5, activation=None,
-            )
-            out = flash_qkv_packed_plain(
-                qkv3d, scale, self.num_heads, head_dim
-            )  # (B, heads*hd, L) — d-major for proj_rows
-            res4 = residual.reshape(B, 1, L, self.dim) if residual is not None else None
-            y = PallasClipProj(self.dim, dtype=self.dtype, name="out_proj")(
-                out.reshape(B, 1, self.dim, L), res4
-            )
-            return y.reshape(B, L, self.dim)
-        assert ln is None, "fused ln requires the Pallas path (caller gates)"
-        qkv = nn.Dense(3 * self.dim, dtype=self.dtype, name="in_proj")(x)
-        qkv = qkv.reshape(B, L, 3, self.num_heads, head_dim).transpose(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-        logits = jnp.einsum(
-            "bhqc,bhkc->bhqk", q * scale, k,
-            preferred_element_type=jnp.float32,
+        out = qkv_packed_plain(qkv3d, head_dim ** -0.5, num_heads, head_dim)
+        x = proj_rows(
+            out.reshape(B, 1, dim, L_),
+            a["out_proj"]["kernel"].astype(dtype),
+            a["out_proj"]["bias"].astype(dtype)[None],
+            x.reshape(B, 1, L_, dim),
+        ).reshape(B, L_, dim)
+    else:
+        x = x + _attention(p["attn"], L.ln(p["ln_1"], x, 1e-5), num_heads,
+                           dtype, attn_mask)
+    m = p["mlp"]
+    if fused:
+        return ln_mlp_residual_bt(
+            x, p["ln_2"]["scale"][None], p["ln_2"]["bias"][None],
+            m["c_fc"]["kernel"].astype(dtype), m["c_fc"]["bias"].astype(dtype)[None],
+            m["c_proj"]["kernel"].astype(dtype), m["c_proj"]["bias"].astype(dtype)[None],
+            eps=1e-5, activation="quick_gelu",
         )
-        if attn_mask is not None:
-            logits = logits + attn_mask
-        probs = jax.nn.softmax(logits, axis=-1).astype(v.dtype)
-        out = jnp.einsum("bhqk,bhkc->bhqc", probs, v, preferred_element_type=jnp.float32)
-        out = out.astype(x.dtype).transpose(0, 2, 1, 3).reshape(B, L, self.dim)
-        return nn.Dense(self.dim, dtype=self.dtype, name="out_proj")(out)
-
-
-class ClipMLP(nn.Module):
-    dim: int
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Dense(4 * self.dim, dtype=self.dtype, name="c_fc")(x)
-        x = x * jax.nn.sigmoid(1.702 * x)  # QuickGELU (model.py:171-173)
-        return nn.Dense(self.dim, dtype=self.dtype, name="c_proj")(x)
-
-
-class _ParamsLN(nn.Module):
-    """LayerNormFP32-compatible params without applying the norm
-    (consumed by the fused MLP kernel)."""
-
-    dim: int
-
-    @nn.compact
-    def __call__(self):
-        return (
-            self.param("scale", nn.initializers.ones, (self.dim,), jnp.float32),
-            self.param("bias", nn.initializers.zeros, (self.dim,), jnp.float32),
-        )
-
-
-class _ParamsDense(nn.Module):
-    """nn.Dense-compatible params without applying the layer."""
-
-    in_dim: int
-    out_dim: int
-
-    @nn.compact
-    def __call__(self):
-        return (
-            self.param(
-                "kernel", nn.initializers.lecun_normal(),
-                (self.in_dim, self.out_dim), jnp.float32,
-            ),
-            self.param("bias", nn.initializers.zeros, (self.out_dim,), jnp.float32),
-        )
-
-
-class _ParamsClipMLP(nn.Module):
-    """ClipMLP-compatible param tree for the fused kernels."""
-
-    dim: int
-
-    @nn.compact
-    def __call__(self):
-        w1, b1 = _ParamsDense(self.dim, 4 * self.dim, name="c_fc")()
-        w2, b2 = _ParamsDense(4 * self.dim, self.dim, name="c_proj")()
-        return w1, b1, w2, b2
-
-
-class ResidualBlock(nn.Module):
-    """Pre-norm residual attention block shared by both towers."""
-
-    dim: int
-    num_heads: int
-    dtype: jnp.dtype = jnp.float32
-    fused: bool = True
-
-    @nn.compact
-    def __call__(self, x, attn_mask: Optional[jnp.ndarray] = None):
-        head_dim = self.dim // self.num_heads
-        attn = ClipAttention(self.dim, self.num_heads, self.dtype, name="attn")
-        if (
-            self.fused
-            and attn_mask is None
-            and self.num_heads % 8 == 0
-            and (8 * head_dim) % 128 == 0
-        ):
-            # ln_1 folds into the qkv prologue and the residual into the
-            # projection epilogue (same fusion as the SAM encoder blocks).
-            g1, be1 = _ParamsLN(self.dim, name="ln_1")()
-            x = attn(x, None, ln=(g1, be1), residual=x)
-        else:
-            x = x + attn(LayerNormFP32(eps=1e-5, name="ln_1")(x), attn_mask)
-        if self.fused:
-            # Whole MLP as ONE kernel (LN2 prologue, QuickGELU between the
-            # matmuls, residual epilogue) — the 4*dim hidden stays in VMEM.
-            g2, be2 = _ParamsLN(self.dim, name="ln_2")()
-            w1, b1, w2, b2 = _ParamsClipMLP(self.dim, name="mlp")()
-            # hidden_grid=4: the CLIP sequence (577+ctx, prime-ish) gives
-            # only B programs per call — too few to overlap the LN/GELU VPU
-            # stretches; walking the 4*dim hidden as 4 extra grid steps
-            # recovers ~10% (scripts/probe_clipmlp.py)
-            return ln_mlp_residual_bt(
-                x, g2[None], be2[None],
-                w1.astype(self.dtype), b1.astype(self.dtype)[None],
-                w2.astype(self.dtype), b2.astype(self.dtype)[None],
-                eps=1e-5, activation="quick_gelu",
-                hidden_grid=4,
-            )
-        x = x + ClipMLP(self.dim, self.dtype, name="mlp")(
-            LayerNormFP32(eps=1e-5, name="ln_2")(x)
-        )
-        return x
+    h = L.dense(m["c_fc"], L.ln(p["ln_2"], x, 1e-5), dtype)
+    h = h * jax.nn.sigmoid(1.702 * h)  # QuickGELU (model.py:171-173)
+    return x + L.dense(m["c_proj"], h, dtype)
 
 
 def _splice_visual_prompt(x: jnp.ndarray, prompt: jnp.ndarray, n_ctx: int) -> jnp.ndarray:
@@ -283,115 +168,93 @@ def _splice_text_prompt(x: jnp.ndarray, prompt: jnp.ndarray, n_ctx: int) -> jnp.
     return jnp.concatenate([x[:, :1, :], ctx, x[:, 1 + n_ctx :, :]], axis=1)
 
 
-class AlphaClipVisionTower(nn.Module):
+def init_vision(cfg: AlphaClipConfig, key) -> dict:
+    k = L.Keys(key)
+    width, p = cfg.vision_width, cfg.vision_patch_size
+    std = width ** -0.5
+    params = {
+        "conv1": L.conv_init(k(), p, p, 3, width, bias=False),
+        "conv1_alpha": L.conv_init(k(), p, p, 1, width, bias=False),
+        "class_embedding": L.normal(k(), (width,), std),
+        "positional_embedding": L.normal(k(), (cfg.grid ** 2 + 1, width), std),
+        "ln_pre": L.ln_init(width),
+        "ln_post": L.ln_init(width),
+        "proj": L.normal(k(), (width, cfg.embed_dim), std),
+    }
+    for i in range(cfg.vision_layers):
+        params[f"resblock_{i}"] = init_resblock(k(), width)
+    return params
+
+
+def vision(
+    cfg: AlphaClipConfig,
+    params: dict,
+    image: jnp.ndarray,            # (B, H, W, 3) normalised
+    alpha: jnp.ndarray,            # (B, H, W, 1)
+    shared_ctx: jnp.ndarray,       # (n_ctx, vision_width) projected prompt
+    deep_prompts: Sequence[jnp.ndarray],  # prompt_depth-1 of (n_ctx, vision_width)
+) -> jnp.ndarray:
     """MaPLe Alpha-CLIP vision transformer -> (B, embed_dim) image features."""
+    width, p, dt = cfg.vision_width, cfg.vision_patch_size, cfg.dtype
+    x = L.conv(params["conv1"], image, p, "VALID", dt)
+    x = x + L.conv(params["conv1_alpha"], alpha, p, "VALID", dt)
+    B = x.shape[0]
+    x = x.reshape(B, -1, width)  # (B, grid^2, width)
+    cls = jnp.broadcast_to(
+        params["class_embedding"][None, None].astype(x.dtype), (B, 1, width)
+    )
+    x = jnp.concatenate([cls, x], axis=1)
+    x = x + params["positional_embedding"][None].astype(x.dtype)
 
-    cfg: AlphaClipConfig
+    # Shallow VPT: append the n_ctx learned tokens at the end.
+    vctx = jnp.broadcast_to(
+        shared_ctx[None].astype(x.dtype), (B, cfg.n_ctx, width)
+    )
+    x = jnp.concatenate([x, vctx], axis=1)
+    x = L.ln(params["ln_pre"], x, 1e-5)
 
-    @nn.compact
-    def __call__(
-        self,
-        image: jnp.ndarray,            # (B, H, W, 3) normalised
-        alpha: jnp.ndarray,            # (B, H, W, 1)
-        shared_ctx: jnp.ndarray,       # (n_ctx, vision_width) projected prompt
-        deep_prompts: Sequence[jnp.ndarray],  # prompt_depth-1 of (n_ctx, vision_width)
-    ) -> jnp.ndarray:
-        cfg = self.cfg
-        width = cfg.vision_width
-        p = cfg.vision_patch_size
+    for i in range(cfg.vision_layers):
+        if i > 0 and (i - 1) < len(deep_prompts):
+            x = _splice_visual_prompt(x, deep_prompts[i - 1], cfg.n_ctx)
+        x = resblock(params[f"resblock_{i}"], x, cfg.vision_heads, dt, cfg.fused)
 
-        x = nn.Conv(
-            width, (p, p), strides=(p, p), padding="VALID", use_bias=False,
-            dtype=cfg.dtype, name="conv1",
-        )(image.astype(cfg.dtype))
-        x = x + nn.Conv(
-            width, (p, p), strides=(p, p), padding="VALID", use_bias=False,
-            dtype=cfg.dtype, name="conv1_alpha",
-        )(alpha.astype(cfg.dtype))
-        B = x.shape[0]
-        x = x.reshape(B, -1, width)  # (B, grid^2, width)
-
-        class_embedding = self.param(
-            "class_embedding", nn.initializers.normal(width ** -0.5), (width,), jnp.float32
-        )
-        positional_embedding = self.param(
-            "positional_embedding",
-            nn.initializers.normal(width ** -0.5),
-            (cfg.grid ** 2 + 1, width),
-            jnp.float32,
-        )
-        cls = jnp.broadcast_to(
-            class_embedding[None, None].astype(x.dtype), (B, 1, width)
-        )
-        x = jnp.concatenate([cls, x], axis=1)
-        x = x + positional_embedding[None].astype(x.dtype)
-
-        # Shallow VPT: append the n_ctx learned tokens at the end.
-        vctx = jnp.broadcast_to(
-            shared_ctx[None].astype(x.dtype), (B, cfg.n_ctx, width)
-        )
-        x = jnp.concatenate([x, vctx], axis=1)
-        x = LayerNormFP32(eps=1e-5, name="ln_pre")(x)
-
-        for i in range(cfg.vision_layers):
-            if i > 0 and (i - 1) < len(deep_prompts):
-                x = _splice_visual_prompt(x, deep_prompts[i - 1], cfg.n_ctx)
-            x = ResidualBlock(
-                width, cfg.vision_heads, cfg.dtype, cfg.fused,
-                name=f"resblock_{i}",
-            )(x)
-
-        x = LayerNormFP32(eps=1e-5, name="ln_post")(x[:, 0, :])
-        proj = self.param(
-            "proj",
-            nn.initializers.normal(width ** -0.5),
-            (width, cfg.embed_dim),
-            jnp.float32,
-        )
-        return (x.astype(jnp.float32) @ proj).astype(jnp.float32)
+    x = L.ln(params["ln_post"], x[:, 0, :], 1e-5)
+    return (x.astype(jnp.float32) @ params["proj"]).astype(jnp.float32)
 
 
-class ClipTextTower(nn.Module):
+def init_text(cfg: AlphaClipConfig, key) -> dict:
+    k = L.Keys(key)
+    width = cfg.transformer_width
+    params = {
+        "positional_embedding": L.normal(k(), (cfg.context_length, width), 0.01),
+        "ln_final": L.ln_init(width),
+        "text_projection": L.normal(k(), (width, cfg.embed_dim), width ** -0.5),
+    }
+    for i in range(cfg.transformer_layers):
+        params[f"resblock_{i}"] = init_resblock(k(), width)
+    return params
+
+
+def text(
+    cfg: AlphaClipConfig,
+    params: dict,
+    prompt_embeddings: jnp.ndarray,   # (N, L, width) token embeddings
+    eot_indices: jnp.ndarray,         # (N,) int — argmax of token ids
+    deep_prompts: Sequence[jnp.ndarray],  # prompt_depth-1 of (n_ctx, width)
+) -> jnp.ndarray:
     """MaPLe CLIP text transformer -> (N, embed_dim) text features.
 
     Takes pre-embedded prompts (the prompt learner splices learned ctx into
-    the embedding stream before this module — `cocotrainers/mapleAlphaCLIP.py:64-78`).
-    """
-
-    cfg: AlphaClipConfig
-
-    @nn.compact
-    def __call__(
-        self,
-        prompt_embeddings: jnp.ndarray,   # (N, L, width) token embeddings
-        eot_indices: jnp.ndarray,         # (N,) int — argmax of token ids
-        deep_prompts: Sequence[jnp.ndarray],  # prompt_depth-1 of (n_ctx, width)
-    ) -> jnp.ndarray:
-        cfg = self.cfg
-        width = cfg.transformer_width
-        positional_embedding = self.param(
-            "positional_embedding",
-            nn.initializers.normal(0.01),
-            (cfg.context_length, width),
-            jnp.float32,
-        )
-        x = prompt_embeddings.astype(cfg.dtype) + positional_embedding[None].astype(
-            cfg.dtype
-        )
-        mask = build_causal_mask(cfg.context_length)
-        for i in range(cfg.transformer_layers):
-            if i > 0 and (i - 1) < len(deep_prompts):
-                x = _splice_text_prompt(x, deep_prompts[i - 1], cfg.n_ctx)
-            x = ResidualBlock(
-                width, cfg.transformer_heads, cfg.dtype, cfg.fused,
-                name=f"resblock_{i}",
-            )(x, mask)
-        x = LayerNormFP32(eps=1e-5, name="ln_final")(x)
-        x = jnp.take_along_axis(x, eot_indices[:, None, None], axis=1)[:, 0, :]
-        text_projection = self.param(
-            "text_projection",
-            nn.initializers.normal(width ** -0.5),
-            (width, cfg.embed_dim),
-            jnp.float32,
-        )
-        return (x.astype(jnp.float32) @ text_projection).astype(jnp.float32)
+    the embedding stream before this function —
+    `cocotrainers/mapleAlphaCLIP.py:64-78`)."""
+    dt = cfg.dtype
+    x = prompt_embeddings.astype(dt) + params["positional_embedding"][None].astype(dt)
+    mask = build_causal_mask(cfg.context_length)
+    for i in range(cfg.transformer_layers):
+        if i > 0 and (i - 1) < len(deep_prompts):
+            x = _splice_text_prompt(x, deep_prompts[i - 1], cfg.n_ctx)
+        x = resblock(params[f"resblock_{i}"], x, cfg.transformer_heads, dt,
+                     cfg.fused, mask)
+    x = L.ln(params["ln_final"], x, 1e-5)
+    x = jnp.take_along_axis(x, eot_indices[:, None, None], axis=1)[:, 0, :]
+    return (x.astype(jnp.float32) @ params["text_projection"]).astype(jnp.float32)

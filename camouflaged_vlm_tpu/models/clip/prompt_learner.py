@@ -27,7 +27,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import jax.numpy as jnp
-import flax.linen as nn
+
+from .. import layers as L
 
 from .tokenizer import tokenize
 
@@ -84,45 +85,40 @@ def ctx_init_embedding(
     return token_embedding[ids[1 : 1 + n_ctx]].astype(np.float32)
 
 
-class MultiModalPromptLearner(nn.Module):
-    cfg: PromptLearnerConfig
-
-    @nn.compact
-    def __call__(
-        self, prefix: jnp.ndarray, suffix: jnp.ndarray
-    ) -> Tuple[jnp.ndarray, jnp.ndarray, List[jnp.ndarray], List[jnp.ndarray]]:
-        """Returns (prompts, shared_ctx, deep_text_prompts, deep_visual_prompts).
-
-        prefix: (N, 1, W), suffix: (N, L-1-n_ctx, W) for the active class split.
-        """
-        cfg = self.cfg
-        ctx = self.param(
-            "ctx",
-            nn.initializers.normal(0.02),
-            (cfg.n_ctx, cfg.text_width),
-            jnp.float32,
+def init(cfg: PromptLearnerConfig, key) -> dict:
+    k = L.Keys(key)
+    params = {
+        "ctx": L.normal(k(), (cfg.n_ctx, cfg.text_width), 0.02),
+        "proj": L.dense_init(k(), cfg.text_width, cfg.vision_width),
+    }
+    for i in range(cfg.prompt_depth - 1):
+        params[f"compound_prompts_text_{i}"] = L.normal(
+            k(), (cfg.n_ctx, cfg.text_width), 0.02
         )
-        n_cls = prefix.shape[0]
-        ctx_b = jnp.broadcast_to(ctx[None], (n_cls, cfg.n_ctx, cfg.text_width))
-        prompts = jnp.concatenate(
-            [prefix.astype(jnp.float32), ctx_b, suffix.astype(jnp.float32)], axis=1
+        params[f"compound_prompt_proj_{i}"] = L.dense_init(
+            k(), cfg.text_width, cfg.vision_width
         )
+    return params
 
-        shared_ctx = nn.Dense(cfg.vision_width, dtype=cfg.dtype, name="proj")(ctx)
 
-        deep_text: List[jnp.ndarray] = []
-        deep_visual: List[jnp.ndarray] = []
-        for i in range(cfg.prompt_depth - 1):
-            p = self.param(
-                f"compound_prompts_text_{i}",
-                nn.initializers.normal(0.02),
-                (cfg.n_ctx, cfg.text_width),
-                jnp.float32,
-            )
-            deep_text.append(p)
-            deep_visual.append(
-                nn.Dense(
-                    cfg.vision_width, dtype=cfg.dtype, name=f"compound_prompt_proj_{i}"
-                )(p)
-            )
-        return prompts, shared_ctx, deep_text, deep_visual
+def apply(
+    cfg: PromptLearnerConfig, params: dict, prefix: jnp.ndarray, suffix: jnp.ndarray
+) -> Tuple[jnp.ndarray, jnp.ndarray, List[jnp.ndarray], List[jnp.ndarray]]:
+    """Returns (prompts, shared_ctx, deep_text_prompts, deep_visual_prompts).
+
+    prefix: (N, 1, W), suffix: (N, L-1-n_ctx, W) for the active class split.
+    """
+    ctx = params["ctx"]
+    n_cls = prefix.shape[0]
+    ctx_b = jnp.broadcast_to(ctx[None], (n_cls, cfg.n_ctx, cfg.text_width))
+    prompts = jnp.concatenate(
+        [prefix.astype(jnp.float32), ctx_b, suffix.astype(jnp.float32)], axis=1
+    )
+    shared_ctx = L.dense(params["proj"], ctx, cfg.dtype)
+    deep_text: List[jnp.ndarray] = []
+    deep_visual: List[jnp.ndarray] = []
+    for i in range(cfg.prompt_depth - 1):
+        pt = params[f"compound_prompts_text_{i}"]
+        deep_text.append(pt)
+        deep_visual.append(L.dense(params[f"compound_prompt_proj_{i}"], pt, cfg.dtype))
+    return prompts, shared_ctx, deep_text, deep_visual

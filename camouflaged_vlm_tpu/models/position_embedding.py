@@ -10,8 +10,8 @@ it is a parameter initialised with unit normals and restored from checkpoints.
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
 
 def random_position_embedding(gaussian_matrix: jnp.ndarray, size: int) -> jnp.ndarray:
@@ -28,15 +28,10 @@ def random_position_embedding(gaussian_matrix: jnp.ndarray, size: int) -> jnp.nd
     return jnp.concatenate([jnp.sin(proj), jnp.cos(proj)], axis=-1)
 
 
-class PositionEmbeddingRandom(nn.Module):
-    num_pos_feats: int = 128  # C/2
-
-    @nn.compact
-    def __call__(self, size: int) -> jnp.ndarray:
-        gaussian = self.param(
-            "positional_encoding_gaussian_matrix",
-            nn.initializers.normal(stddev=1.0),
-            (2, self.num_pos_feats),
-            jnp.float32,
+def init(num_pos_feats: int, key) -> dict:
+    """(2, C/2) unit-normal Gaussian matrix (C/2 = num_pos_feats)."""
+    return {
+        "positional_encoding_gaussian_matrix": jax.random.normal(
+            key, (2, num_pos_feats), jnp.float32
         )
-        return random_position_embedding(gaussian, size)
+    }

@@ -2,15 +2,17 @@
 
 Re-design of `/root/reference/models/mmseg/models/sam/image_encoder.py`
 (ImageEncoderViT :25-155, PromptGenerator :218-353, Block :383-446,
-Attention :449-504) for TPU:
+Attention :449-504) as plain functions over a parameter dict
+(`init(cfg, key)` / `apply(cfg, params, x, ...)`):
 
-  * NHWC layout end to end — patch embed is a 16x16/stride-16 conv that XLA
-    maps straight onto the MXU; "LayerNorm2d" collapses to a last-axis norm.
-  * Windowed attention (14x14) runs as one batched attention over
-    B * 25 windows — no per-window loop.
+  * NHWC layout end to end — patch embed is a 16x16/stride-16 conv computed
+    as one matmul on rearranged patches; "LayerNorm2d" collapses to a
+    last-axis norm.
+  * Windowed attention (14x14) runs as one batched attention over all
+    windows — no per-window loop — on a pad-free carry
+    (ops/compact_window.py).
   * Global attention (4 blocks at 64x64 = 4096 tokens) uses the decomposed
-    rel-pos attention op; the Pallas flash path plugs in behind the same
-    interface (ops/flash_attention.py).
+    rel-pos attention on the packed qkv (ops/attention.py).
   * Compute dtype is configurable (bf16 for speed); layer norms and softmax
     stay fp32.
   * The EVP prompt stream (FFT high-pass handcrafted features + patch
@@ -26,13 +28,23 @@ Trainable-at-finetune params (mirroring the reference freeze rule,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
-from ..ops.norms import LayerNormFP32
+from . import layers as L
+from ..ops.aug_attention import augment_qk, attention_xla
+from ..ops.attention import (
+    make_rel_scatter,
+    qkv_packed_edge,
+    qkv_packed_global,
+    qkv_packed_windows,
+    qkv_packed_windows_s,
+    qkv_relpos_windows,
+    xla_attention_relpos,
+)
 from ..ops.compact_window import (
     REL_LANES,
     CompactGeometry,
@@ -42,33 +54,19 @@ from ..ops.compact_window import (
     edge_rel_fast,
     edge_rel_lpad,
 )
-from ..ops.window import (
-    window_partition_seq,
-    window_unpartition_seq,
-    window_valid_mask,
-)
-from ..ops.rel_pos import attention_with_decomposed_rel_pos, get_rel_pos_table
-from ..ops.aug_attention import augment_qk, attention_xla
-from ..ops.flash_attention import (
-    flash_attention_fullk,
-    flash_attention_relpos,
-    flash_qkv_packed_global,
-    flash_qkv_packed_windows,
-    flash_qkv_packed_windows_s,
-    flash_qkv_relpos_windows,
-    make_rel_scatter,
-    xla_attention_relpos,
-)
 from ..ops.fft_prompt import fft_highpass
-from ..ops.flash_attention import flash_qkv_packed_edge
 from ..ops.linear import (
-    linear_pallas,
     ln_linear_act_bt,
     ln_mask_linear_bt,
     ln_mlp_residual_bt,
     proj_from_heads,
-    proj_from_heads_res,
     proj_rows,
+)
+from ..ops.rel_pos import attention_with_decomposed_rel_pos, get_rel_pos_table
+from ..ops.window import (
+    window_partition_seq,
+    window_unpartition_seq,
+    window_valid_mask,
 )
 
 
@@ -90,24 +88,20 @@ class SamEncoderConfig:
     freq_rate: float = 0.25
     # numerics
     dtype: jnp.dtype = jnp.float32
-    # attention implementation:
-    #   'flash'     — Pallas kernel for windowed AND global blocks with the
-    #                 rel-pos bias regenerated in-kernel (production path;
-    #                 falls back to the XLA equivalent on CPU)
-    #   'aug_flash' — rel-pos as augmented features; Pallas kernel for global
-    #                 blocks, XLA for windows
-    #   'aug_xla'   — augmented features, XLA attention everywhere
+    # attention formulation:
+    #   'flash'     — fused block on the packed qkv: LN1 ahead of the qkv
+    #                 projection, rel-pos bias as `rel @ sel`, compact window
+    #                 layout, residual in the projection epilogue (default)
+    #   'aug_xla'   — rel-pos as augmented q/k features, plain attention
     #   'reference' — dense bias materialisation (parity/debug path)
     attn_impl: str = "flash"
-    # tanh-approximated GELU in the ViT MLPs. The erf GELU rides inside the
-    # MLP matmul fusions and stalls the MXU (~35% slower MLP); tanh's max
-    # deviation (~1e-3 relative) is below bf16 rounding noise, so it is ON
-    # by default. Set False (with dtype=float32, attn_impl='reference') for
+    # tanh-approximated GELU in the ViT MLPs (max deviation ~1e-3 relative,
+    # below bf16 rounding). Its speed against the erf GELU is not measured
+    # on the H100. Set False (with dtype=float32, attn_impl='reference') for
     # bit-faithful parity runs.
     gelu_approximate: bool = True
     # rematerialise block activations in the backward pass (jax.checkpoint):
-    # full ViT-H activations exceed HBM beyond batch 1-2 without it. Costs
-    # ~1/3 extra forward FLOPs during training; no effect on inference.
+    # costs ~1/3 extra forward FLOPs during training; no effect on inference.
     remat: bool = False
 
     @property
@@ -134,92 +128,19 @@ class SamEncoderConfig:
         return cls(**defaults)
 
 
-class PatchEmbedMatmul(nn.Module):
-    """Patch-embed conv (kernel==stride, VALID) computed as one matmul on
-    rearranged patches — param tree identical to nn.Conv.
-
-    XLA's convolution fusion for the 3-channel stem ran at ~14 TF/s and
-    forced layout copies of the 1024^2 input (~9 ms/pass at batch 8); the
-    rearrange+matmul formulation runs on the MXU at matmul rate. Equivalent
-    of the reference `PatchEmbed`/`PatchEmbed2`
-    (`image_encoder.py:628-657,355-381`)."""
-
-    features: int
-    patch: int
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> jnp.ndarray:  # (B, H, W, C)
-        B, H, W, C = x.shape
-        p = self.patch
-        kernel = self.param(
-            "kernel", nn.initializers.lecun_normal(),
-            (p, p, C, self.features), jnp.float32,
-        )
-        bias = self.param("bias", nn.initializers.zeros, (self.features,), jnp.float32)
-        gh, gw = H // p, W // p
-        x2 = (
-            x.astype(self.dtype)
-            .reshape(B, gh, p, gw, p, C)
-            .transpose(0, 1, 3, 2, 4, 5)
-            .reshape(B * gh * gw, p * p * C)
-        )
-        w2 = kernel.astype(self.dtype).reshape(p * p * C, self.features)
-        if (
-            self.features % 128 == 0
-            and x2.shape[0] % 8 == 0
-            and jax.default_backend() != "cpu"
-        ):
-            y = linear_pallas(x2, w2, bias.astype(self.dtype)[None])
-        else:
-            y = x2 @ w2 + bias.astype(x2.dtype)
-        return y.reshape(B, gh, gw, self.features)
-
-
-class PallasHeadProj(nn.Module):
-    """Output projection consuming the attention kernels' head-leading
-    (B, heads, T, S, d) layout directly (param tree identical to nn.Dense).
-    An optional residual (B, T, S, features) folds into the epilogue."""
-
-    features: int
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(
-        self, x: jnp.ndarray, res: Optional[jnp.ndarray] = None
-    ) -> jnp.ndarray:
-        """x: d-major (B, T, heads*d, S) from the packed attention kernels
-        (-> proj_rows, full-rate contiguous reads), or legacy head-leading
-        (B, heads, T, S, d) 5D (-> proj_from_heads; only the H+W>32
-        fallback attention emits it)."""
-        in_dim = x.shape[1] * x.shape[-1] if x.ndim == 5 else x.shape[2]
-        kernel = self.param(
-            "kernel", nn.initializers.lecun_normal(),
-            (in_dim, self.features), jnp.float32,
-        )
-        bias = self.param("bias", nn.initializers.zeros, (self.features,), jnp.float32)
-        b = bias.astype(self.dtype)[None]
-        if x.ndim == 4:
-            return proj_rows(x, kernel.astype(self.dtype), b, res)
-        B, heads, T, S, d = x.shape
-        w = kernel.astype(self.dtype).reshape(heads, d, self.features)
-        if res is not None:
-            return proj_from_heads_res(x, w, b, res)
-        return proj_from_heads(x, w, b)  # (B, T, S, features)
-
-
 def fused_attention_enabled(attn_impl: str, use_rel_pos: bool, num_heads: int) -> bool:
-    """The fused attention data path (qkv/attention/proj kernels).
-
-    Backend-independent since round 3: on CPU every kernel wrapper degrades
-    to its XLA reference internally, so tests and the multichip dryrun
-    exercise the SAME fused structure (compact window layout included) that
-    runs compiled on TPU."""
+    """Whether blocks take the fused data path (LN1 + qkv, packed
+    attention, projection + residual; compact window layout)."""
     return attn_impl == "flash" and use_rel_pos and num_heads % 8 == 0
 
 
+# ----------------------------------------------------------------------------
+# rel-pos factor builders
+# ----------------------------------------------------------------------------
+
+
 def rel_and_scatter(q_heads, rel_pos_h, rel_pos_w, H, W):
-    """Rank-structured rel-pos bias factors for the flash kernels.
+    """Rank-structured rel-pos bias factors.
 
     q_heads: (..., H, W, heads, hd) UNSCALED queries (reference semantics,
     `image_encoder.py:589-625`). Returns (rel (..., H, W, heads, H+W) =
@@ -236,10 +157,8 @@ def rel_and_scatter(q_heads, rel_pos_h, rel_pos_w, H, W):
 def make_rcomb(H, W, rel_pos_h, rel_pos_w, dt, lanes=32):
     """Combined per-(qh, qw) rel-pos table (H, W, hd, lanes): lane j < H holds
     Rh[qh, j], lanes H..H+W-1 hold Rw[qw, j-H], the rest zero — one einsum
-    with it emits the flash kernels' packed [rel_h | rel_w | 0] layout.
-    Windowed callers use lanes=32; the global blocks pass lanes=H+W (128 for
-    ViT-H, an 84 MB transient per block — cheaper than the two-einsum +
-    concat + pad chain it replaces, which cost ~12 ms/iter of copies)."""
+    with it emits the packed [rel_h | rel_w | 0] layout. Windowed callers use
+    lanes=32; the global blocks pass lanes=H+W."""
     assert H + W <= lanes, (H, W, lanes)
     Rh = get_rel_pos_table(H, H, rel_pos_h).astype(dt)  # (H, kh, hd)
     Rw = get_rel_pos_table(W, W, rel_pos_w).astype(dt)  # (W, kw, hd)
@@ -261,14 +180,10 @@ def rel_smajor_global(q_heads, rel_pos_h, rel_pos_w, H, W, rcg=None):
     """Position-major packed rel factors for the global blocks.
 
     q_heads: (B, H, W, heads, hd) UNSCALED queries. Returns
-    (rel_s (H*W, B, heads, H+W), sel (H+W, H*W)) with
-    bias[q, k] = (rel_s[q] @ sel)[k] — the SAME factors as
-    `rel_and_scatter`, but emitted in the batched-matmul's NATURAL layout
-    (contraction batch = query position), which is exactly what
-    `flash_qkv_packed_global` v2 consumes: no transposing copy, no concat,
-    no lane pad (the old chain cost ~12 ms/iter at batch 8 —
-    scripts/probe_relv2.py measured the swap at -1.4 ms per global block,
-    bit-exact). `rcg` takes the precomputed combined table (see
+    rel_s (H*W, B, heads, H+W) with bias[q, k] = (rel_s[q] @ sel)[k] — the
+    SAME factors as `rel_and_scatter`, in the batched matmul's natural
+    layout (contraction batch = query position), which `qkv_packed_global`
+    consumes. `rcg` takes the precomputed combined table (see
     `precompute_rel_tables` — it is param-derived, so inference hoists its
     construction out of the per-batch program)."""
     B = q_heads.shape[0]
@@ -277,21 +192,16 @@ def rel_smajor_global(q_heads, rel_pos_h, rel_pos_w, H, W, rcg=None):
         rcg = make_rcomb(
             H, W, rel_pos_h, rel_pos_w, q_heads.dtype, lanes=H + W
         )  # (H, W, hd, H+W)
-    rel_s = jnp.einsum(
+    return jnp.einsum(
         "bhwnc,hwcj->hwbnj", q_heads, rcg.astype(q_heads.dtype)
     ).reshape(H * W, B, heads, H + W)
-    return rel_s, make_rel_scatter(H, W, dtype=q_heads.dtype)
 
 
 def rel_packed32(q_heads, rel_pos_h, rel_pos_w, H, W):
-    """`rel_and_scatter` fused into ONE einsum with the 32-lane pad built in.
-
-    The two-einsum + concat + pad formulation materialised four lane-padded
-    intermediates per block (measured ~1.9 ms/block at batch 8 — the rel
-    chain was ~52 ms/pass). Here the per-(qh, qw) tables are pre-combined
-    into `Rcomb[(qh, qw), c, j]` (j = [kh | kw | 0-pad] of width 32, a tiny
-    (H, W, hd, 32) constant-shaped tensor), so XLA emits a single batched
-    matmul whose output is already the kernel's packed layout.
+    """`rel_and_scatter` as ONE einsum with the 32-lane pad built in: the
+    per-(qh, qw) tables are pre-combined into `Rcomb[(qh, qw), c, j]`
+    (j = [kh | kw | 0-pad] of width 32), so the output is already the packed
+    layout.
 
     Returns (rel (..., H, W, heads, 32), sel32 (32, H*W))."""
     rel = jnp.einsum(
@@ -306,8 +216,7 @@ def rel_packed32(q_heads, rel_pos_h, rel_pos_w, H, W):
 
 def make_rblk(win, rel_pos_h, rel_pos_w, hd, dt, head_group=8):
     """Block-diagonal kron(I_hg, Rcomb[s]) table (S, hg*hd, hg*32) for the
-    windowed s-major rel einsum. Param-derived only — 15.7 ms/iter of the
-    batch-8 trace was spent re-materialising it every forward, so inference
+    windowed s-major rel einsum. Param-derived only, so inference
     precomputes it once (`precompute_rel_tables`)."""
     S = win * win
     rc = make_rcomb(win, win, rel_pos_h, rel_pos_w, dt).reshape(S, hd, 32)
@@ -321,15 +230,13 @@ def rel_smajor_windows(qkv_flat, rel_pos_h, rel_pos_w, win, heads, hd,
 
     qkv_flat: (BW, S, 3*heads*hd) raw qkv projection (UNSCALED q in the
     leading lanes). Returns (rel_s (S, BW, heads*32), sel32 (32, S)) — the
-    same [rel_h | rel_w | 0] per-head packing as `rel_packed32`, but in the
-    rel einsum's NATURAL batched-matmul layout (contraction batch = window
-    position), consumed directly by `flash_qkv_packed_windows_s`. The trick:
-    the per-position (hd, 32) combined table is lifted to a block-diagonal
-    kron(I_hg, Rcomb[s]) (S, hg*hd, hg*32) so ONE einsum against tile-aligned
-    640-lane q slices emits all heads' lanes already packed — no transposing
-    copy, no merge reshape (together ~13 ms/iter at batch 8;
-    scripts/probe_relv2.py: 4.30 -> 3.88 ms per block end-to-end). `rblk`
-    takes the precomputed table (`precompute_rel_tables`)."""
+    same [rel_h | rel_w | 0] per-head packing as `rel_packed32`, in the rel
+    einsum's natural batched-matmul layout (contraction batch = window
+    position), consumed by `qkv_packed_windows_s`. With `rblk` (the
+    precomputed block-diagonal kron(I_hg, Rcomb[s]) table) ONE einsum over
+    head groups emits all heads' lanes already packed; without it (training,
+    where the rel params update) each head contracts against the small
+    combined table."""
     S = win * win
     dim = heads * hd
     if heads % head_group != 0:
@@ -337,13 +244,6 @@ def rel_smajor_windows(qkv_flat, rel_pos_h, rel_pos_w, win, heads, hd,
     ghd = head_group * hd
     n_g = dim // ghd
     if rblk is None:
-        # Training / no-cache path: contract per head against the small
-        # combined table directly. The block-diagonal kron table only pays
-        # off when it is PRECOMPUTED (eval: one big tile-aligned einsum per
-        # group, zero in-graph table cost); built in-graph it costs ~28 ms
-        # of the batch-2 train step — an 8x-sparse 64 MB table write plus a
-        # layout copy per block, rebuilt again under remat (trace_train.py:
-        # 112 (196,640,256) copies/2 steps).
         rc = make_rcomb(win, win, rel_pos_h, rel_pos_w, qkv_flat.dtype)
         rc = rc.reshape(S, hd, 32)
         q = qkv_flat[:, :, :dim].reshape(-1, S, heads, hd)
@@ -366,8 +266,6 @@ def make_redge_tables(win, rel_pos_h, rel_pos_w, hd, dt, geom, head_group=8):
     layout (row-major over the group's (nr, nc) real grid; corner rows
     beyond g.rows are zero — their outputs are discarded). Consumed by
     `ops.compact_window.edge_rel_fast`."""
-    from ..ops.compact_window import REL_LANES
-
     rc = make_rcomb(win, win, rel_pos_h, rel_pos_w, dt)  # (win, win, hd, 32)
     eye = jnp.eye(head_group, dtype=dt)
     R = geom.R_u
@@ -382,16 +280,14 @@ def make_redge_tables(win, rel_pos_h, rel_pos_w, hd, dt, geom, head_group=8):
 
 
 def precompute_rel_tables(cfg, encoder_params):
-    """Param-derived rel-pos tables for inference ('relcache' collection).
+    """Param-derived rel-pos tables for inference (the 'relcache' entry).
 
     The combined rel tables (`make_rcomb` / `make_rblk`) depend ONLY on the
-    rel_pos_{h,w} params, but being built inside the forward they cost
-    ~18 ms/iter at batch 8 (the kron table alone traced at 15.7 ms). For
-    fixed weights (eval/bench/demo) build them ONCE here and pass
-    `{'relcache': {'image_encoder': <this>}}` alongside 'params' to
-    `model.apply` — `Attention` picks them up via `get_variable` and skips
-    the in-program build. Training keeps the in-program path (the tables
-    must track the updating rel_pos params).
+    rel_pos_{h,w} params. For fixed weights (eval/bench/serve) build them
+    ONCE here and pass `{'relcache': {'image_encoder': <this>}}` beside
+    'params' to the cascade; the attention picks them up and skips the
+    in-program build. Training keeps the in-program path (the tables must
+    track the updating rel_pos params).
 
     encoder_params: the ENCODER's param subtree (params['params']
     ['image_encoder']). Returns {'block_i': {'attn': {...}}}.
@@ -427,580 +323,398 @@ def precompute_rel_tables(cfg, encoder_params):
     return out
 
 
-class Attention(nn.Module):
-    """Multi-head attention with optional decomposed rel-pos bias.
+# ----------------------------------------------------------------------------
+# parameters
+# ----------------------------------------------------------------------------
 
-    Input/output are SEQUENCE-shaped (B', S, C) with S == H*W from
-    `input_size`: windowed callers fold windows into B' (carry layout — see
-    Block), global callers pass (B, H*W, C) (a free reshape of the grid).
-    """
 
-    dim: int
-    num_heads: int
-    use_rel_pos: bool
-    input_size: Tuple[int, int]
-    dtype: jnp.dtype = jnp.float32
-    attn_impl: str = "aug_flash"
-    num_windows: int = 1  # windows folded into the batch dim (set by Block)
-    geom: Optional[CompactGeometry] = None  # compact (pad-free) window layout
+def _init_block(cfg: SamEncoderConfig, key, attn_size: Tuple[int, int]) -> dict:
+    k = L.Keys(key)
+    D = cfg.embed_dim
+    hd = D // cfg.num_heads
+    hidden = int(D * cfg.mlp_ratio)
+    attn = {"qkv": L.dense_init(k(), D, 3 * D), "proj": L.dense_init(k(), D, D)}
+    if cfg.use_rel_pos:
+        attn["rel_pos_h"] = jnp.zeros((2 * attn_size[0] - 1, hd), jnp.float32)
+        attn["rel_pos_w"] = jnp.zeros((2 * attn_size[1] - 1, hd), jnp.float32)
+    return {
+        "norm1": L.ln_init(D),
+        "attn": attn,
+        "norm2": L.ln_init(D),
+        "mlp": {"lin1": L.dense_init(k(), D, hidden),
+                "lin2": L.dense_init(k(), hidden, D)},
+    }
 
-    def _rel_cache(self, name):
-        """Precomputed rel table from the optional 'relcache' collection
-        (see `precompute_rel_tables`); None -> build in-program."""
-        if self.has_variable("relcache", name):
-            return self.get_variable("relcache", name)
-        return None
 
-    def _compact_call(self, xf, xe, ln):
-        """Compact-layout windowed attention: x_full (B*n_full, win^2, C)
-        through the packed-windows kernel, x_edge (B, E, C) through the
-        virtual-pad-key edge kernel (see ops/compact_window.py). LN1 rides
-        the qkv prologue; the block residual rides the proj epilogue."""
-        geom = self.geom
-        win, dim, heads = geom.win, self.dim, self.num_heads
-        hd = dim // heads
-        scale = hd ** -0.5
-        S = win * win
-        nf = geom.n_full
-        B = xf.shape[0] // nf
-        g1, be1 = ln
-        wq, bq = _ParamsDense(dim, 3 * dim, name="qkv")()
-        rel_pos_h = self.param(
-            "rel_pos_h", nn.initializers.zeros, (2 * win - 1, hd), jnp.float32
+def init(cfg: SamEncoderConfig, key) -> dict:
+    """Encoder parameter tree (random weights)."""
+    k = L.Keys(key)
+    D, P, p = cfg.embed_dim, cfg.prompt_dim, cfg.patch_size
+    params = {
+        "patch_embed": L.conv_init(k(), p, p, cfg.in_chans, D, bias=True),
+        "prompt_generator": {
+            "embedding_generator": L.dense_init(k(), D, P),
+            "handcrafted_embed": L.conv_init(k(), p, p, cfg.in_chans, P, bias=True),
+            "shared_mlp": L.dense_init(k(), P, D),
+            **{f"lightweight_mlp_{i}": L.dense_init(k(), P, P)
+               for i in range(cfg.depth)},
+        },
+        "pos_embed": jnp.zeros((1, cfg.grid, cfg.grid, D), jnp.float32),
+        "neck_conv1": L.conv_init(k(), 1, 1, D, cfg.out_chans, bias=False),
+        "neck_ln1": L.ln_init(cfg.out_chans),
+        "neck_conv2": L.conv_init(k(), 3, 3, cfg.out_chans, cfg.out_chans, bias=False),
+        "neck_ln2": L.ln_init(cfg.out_chans),
+    }
+    for i in range(cfg.depth):
+        windowed = cfg.window_size > 0 and i not in cfg.global_attn_indexes
+        size = (cfg.window_size,) * 2 if windowed else (cfg.grid, cfg.grid)
+        params[f"block_{i}"] = _init_block(cfg, k(), size)
+    return params
+
+
+# ----------------------------------------------------------------------------
+# forward
+# ----------------------------------------------------------------------------
+
+
+def patch_embed(p: dict, x: jnp.ndarray, patch: int, dtype) -> jnp.ndarray:
+    """Patch-embed conv (kernel == stride, VALID) as one matmul on
+    rearranged patches; param tree of a (p, p, C, D) conv. Equivalent of the
+    reference `PatchEmbed`/`PatchEmbed2` (`image_encoder.py:628-657,355-381`)."""
+    B, H, W, C = x.shape
+    features = p["kernel"].shape[-1]
+    gh, gw = H // patch, W // patch
+    x2 = (
+        x.astype(dtype)
+        .reshape(B, gh, patch, gw, patch, C)
+        .transpose(0, 1, 3, 2, 4, 5)
+        .reshape(B * gh * gw, patch * patch * C)
+    )
+    w2 = p["kernel"].astype(dtype).reshape(patch * patch * C, features)
+    y = x2 @ w2 + p["bias"].astype(dtype)
+    return y.reshape(B, gh, gw, features)
+
+
+def _proj_residual(p: dict, x: jnp.ndarray, res: jnp.ndarray, dtype) -> jnp.ndarray:
+    """(..., in) @ proj + bias + residual, float32 accumulation."""
+    acc = jnp.einsum(
+        "...k,ko->...o", x, p["kernel"].astype(dtype),
+        preferred_element_type=jnp.float32,
+    )
+    acc = acc + p["bias"].astype(jnp.float32) + res.astype(jnp.float32)
+    return acc.astype(x.dtype)
+
+
+def _attention_compact(cfg, p, xf, xe, ln, geom, rc):
+    """Compact-layout windowed attention: x_full (B*n_full, win^2, C) as
+    full windows, x_edge (B, E, C) through the virtual-pad-key edge
+    attention (see ops/compact_window.py). LN1 rides ahead of the qkv
+    projection; the block residual rides the projection."""
+    win, dim, heads = geom.win, cfg.embed_dim, cfg.num_heads
+    dt = cfg.dtype
+    hd = dim // heads
+    scale = hd ** -0.5
+    S = win * win
+    nf = geom.n_full
+    B = xf.shape[0] // nf
+    g1, be1 = ln
+    wq, bq = p["qkv"]["kernel"], p["qkv"]["bias"]
+    wqc = wq.astype(dt)
+    bqc = bq.astype(dt)[None]
+    wp = p["proj"]["kernel"].astype(dt)
+    bp = p["proj"]["bias"].astype(dt)[None]
+    rc = rc or {}
+
+    qkv_f = ln_linear_act_bt(
+        xf, g1[None], be1[None], wqc, bqc, eps=1e-6, activation=None
+    )  # (B*nf, S, 3*dim)
+    rel_s, sel32 = rel_smajor_windows(
+        qkv_f, p["rel_pos_h"], p["rel_pos_w"], win, heads, hd,
+        rblk=rc.get("rblk"),
+    )
+    out_f = qkv_packed_windows_s(
+        qkv_f, rel_s, sel32, scale, heads, hd,
+    ).reshape(B, nf, dim, S)  # d-major for proj_rows
+    yf = proj_rows(out_f, wp, bp, xf.reshape(B, nf, S, dim)).reshape(B * nf, S, dim)
+    if xe is None:
+        return yf, None
+
+    qkv_e = ln_linear_act_bt(
+        xe, g1[None], be1[None], wqc, bqc, eps=1e-6, activation=None
+    )  # (B, E, 3*dim)
+    n, R = geom.n_edge, geom.R_u
+    k_bias = bq[dim : 2 * dim].reshape(heads, hd)
+    redge0 = rc.get("redge_0")
+    if redge0 is not None and redge0.shape[0] == R:
+        # inference: hoisted kron tables + dot-based Lpad (edge_rel_fast)
+        tables = [rc[f"redge_{gi}"] for gi in range(len(geom.edge_groups))]
+        rel_nr = edge_rel_fast(
+            qkv_e, tables, k_bias, scale, geom, heads, hd
+        )  # (B, n, R, heads*32), Lpad in lane 28
+    else:
+        q_e = qkv_e[:, :, :dim].reshape(B, geom.E, heads, hd)
+        rcomb = make_rcomb(win, win, p["rel_pos_h"], p["rel_pos_w"], qkv_e.dtype)
+        rel_e = edge_rel_lpad(
+            q_e, rcomb, k_bias, scale, geom
+        )  # (B, E, heads, 32) with the virtual-pad-key logit in lane 28
+        rel_nr = rel_e.reshape(B, n, R, heads * REL_LANES)
+    sel_e, kmask_e = edge_consts(geom, qkv_e.dtype)
+    vb = bq[2 * dim :].astype(dt).reshape(heads, hd)
+    out_e = qkv_packed_edge(
+        qkv_e.reshape(B, n, R, 3 * dim), rel_nr,
+        sel_e, vb, kmask_e, scale, heads, hd,
+    )  # (B, n, heads*hd, R) — d-major
+    ye = proj_rows(out_e, wp, bp, xe.reshape(B, n, R, dim))
+    return yf, ye.reshape(B, geom.E, dim)
+
+
+def _attention_fused(cfg, p, x, input_size, num_windows, ln, mask, residual, rc):
+    """Fused attention: x is the block's RAW input; LN1 (+pad mask) rides
+    ahead of the qkv projection and `residual` into the projection."""
+    B, N, _ = x.shape
+    H, W = input_size
+    dim, heads, dt = cfg.embed_dim, cfg.num_heads, cfg.dtype
+    hd = dim // heads
+    scale = hd ** -0.5
+    g1, be1 = ln
+    m = mask if mask is not None else jnp.ones((1, N, 1), jnp.float32)
+    qkv3d = ln_mask_linear_bt(
+        x, g1[None], be1[None], m.astype(x.dtype),
+        p["qkv"]["kernel"].astype(dt), p["qkv"]["bias"].astype(dt)[None],
+        eps=1e-6,
+    )
+    qh = qkv3d[:, :, :dim].reshape(B, H, W, heads, hd)
+    wp = p["proj"]["kernel"].astype(dt)
+    bp = p["proj"]["bias"].astype(dt)[None]
+    nwin = num_windows
+    if (nwin > 1 or N <= 512) and H + W <= 32:
+        rel_p, sel32 = rel_packed32(qh, p["rel_pos_h"], p["rel_pos_w"], H, W)
+        out = qkv_packed_windows(
+            qkv3d.reshape(B // nwin, nwin, N, 3 * dim),
+            rel_p.reshape(B // nwin, nwin, N, heads * 32),
+            sel32, scale, heads, hd,
+        )  # (B/nwin, nwin, heads*hd, Nw) — d-major
+        res = residual.reshape(B // nwin, nwin, N, dim)
+        y = proj_rows(out, wp, bp, res)
+    elif nwin > 1 or N <= 512:
+        rel, sel = rel_and_scatter(qh, p["rel_pos_h"], p["rel_pos_w"], H, W)
+        out = qkv_relpos_windows(
+            qkv3d.reshape(B // nwin, nwin, N, 3 * heads, hd),
+            rel.reshape(B // nwin, nwin, N, heads, H + W),
+            sel, scale,
+        )  # (B/nwin, heads, nwin, Nw, hd)
+        res = residual.reshape(B // nwin, nwin, N, dim)
+        y = proj_from_heads(out, wp.reshape(heads, hd, dim), bp, res)
+    else:
+        # global blocks: rel arrives position-major (N, B, heads, H+W)
+        rcg = (rc or {}).get("rcg")
+        if rcg is not None and rcg.shape[:2] != (H, W):
+            rcg = None  # cache built for a different input size
+        rel_s = rel_smajor_global(qh, p["rel_pos_h"], p["rel_pos_w"], H, W, rcg=rcg)
+        out = qkv_packed_global(qkv3d, rel_s, scale, heads, hd, H, W)
+        y = _proj_residual(p["proj"], out, residual, dt)
+    return y.reshape(B, N, dim)
+
+
+def _attention(cfg, p, x, input_size):
+    """Unfused attention: x arrives normed (+masked); caller adds the
+    residual."""
+    B, N, _ = x.shape
+    H, W = input_size
+    dim, heads, dt = cfg.embed_dim, cfg.num_heads, cfg.dtype
+    hd = dim // heads
+    scale = hd ** -0.5
+    qkv = L.dense(p["qkv"], x, dt)
+    qkv = qkv.reshape(B, N, 3, heads, hd).transpose(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]  # (B, heads, N, hd)
+    rel_pos_h = p.get("rel_pos_h")
+    rel_pos_w = p.get("rel_pos_w")
+    if cfg.attn_impl == "reference":
+        out = attention_with_decomposed_rel_pos(
+            q, k, v, rel_pos_h, rel_pos_w, (H, W), scale
         )
-        rel_pos_w = self.param(
-            "rel_pos_w", nn.initializers.zeros, (2 * win - 1, hd), jnp.float32
-        )
-        wqc = wq.astype(self.dtype)
-        bqc = bq.astype(self.dtype)[None]
-        proj = PallasHeadProj(dim, dtype=self.dtype, name="proj")
-
-        qkv_f = ln_linear_act_bt(
-            xf, g1[None], be1[None], wqc, bqc, eps=1e-6, activation=None
-        )  # (B*nf, S, 3*dim)
-        rel_s, sel32 = rel_smajor_windows(
-            qkv_f, rel_pos_h, rel_pos_w, win, heads, hd,
-            rblk=self._rel_cache("rblk"),
-        )
-        out_f = flash_qkv_packed_windows_s(
-            qkv_f, rel_s, sel32, scale, heads, hd,
-        ).reshape(B, nf, dim, S)  # d-major for proj_rows
-        yf = proj(out_f, xf.reshape(B, nf, S, dim)).reshape(B * nf, S, dim)
-        if xe is None:
-            return yf, None
-
-        qkv_e = ln_linear_act_bt(
-            xe, g1[None], be1[None], wqc, bqc, eps=1e-6, activation=None,
-            block_s=504,  # divides E=1008 (ViT-H); bounds the fp32 accumulator
-        )  # (B, E, 3*dim)
-        n, R = geom.n_edge, geom.R_u
-        k_bias = bq[dim : 2 * dim].reshape(heads, hd)
-        redge0 = self._rel_cache("redge_0")
-        if redge0 is not None and redge0.shape[0] == R:
-            # inference: hoisted kron tables + dot-based Lpad (edge_rel_fast)
-            tables = [
-                self._rel_cache(f"redge_{gi}")
-                for gi in range(len(geom.edge_groups))
-            ]
-            rel_nr = edge_rel_fast(
-                qkv_e, tables, k_bias, scale, geom, heads, hd
-            )  # (B, n, R, heads*32), Lpad in lane 28
-        else:
-            q_e = qkv_e[:, :, :dim].reshape(B, geom.E, heads, hd)
-            rcomb = make_rcomb(win, win, rel_pos_h, rel_pos_w, qkv_e.dtype)
-            rel_e = edge_rel_lpad(
-                q_e, rcomb, k_bias, scale, geom
-            )  # (B, E, heads, 32) with the virtual-pad-key logit in lane 28
-            rel_nr = rel_e.reshape(B, n, R, heads * REL_LANES)
-        sel_e, kmask_e = edge_consts(geom, qkv_e.dtype)
-        vb = bq[2 * dim :].astype(self.dtype).reshape(heads, hd)
-        out_e = flash_qkv_packed_edge(
-            qkv_e.reshape(B, n, R, 3 * dim),
-            rel_nr,
-            sel_e, vb, kmask_e, scale, heads, hd,
-        )  # (B, n, heads*hd, R) — d-major
-        ye = proj(out_e, xe.reshape(B, n, R, dim))
-        return yf, ye.reshape(B, geom.E, dim)
-
-    @nn.compact
-    def __call__(
-        self,
-        x,
-        ln: Optional[Tuple[jnp.ndarray, jnp.ndarray]] = None,
-        mask: Optional[jnp.ndarray] = None,
-        residual: Optional[jnp.ndarray] = None,
-    ):
-        """Fused mode (ln is not None): x is the block's RAW input; LN1 (+pad
-        mask) folds into the qkv matmul prologue and `residual` into the
-        projection epilogue — Block's pre-norm and post-add never touch HBM.
-        Compact mode (x is a tuple): see `_compact_call`.
-        Legacy mode (ln None): x arrives normed(+masked); caller adds the
-        residual."""
-        if isinstance(x, tuple):
-            assert ln is not None and self.geom is not None
-            return self._compact_call(x[0], x[1], ln)
-        B, N, _ = x.shape
-        H, W = self.input_size
-        assert N == H * W, (N, H, W)
-        head_dim = self.dim // self.num_heads
-        scale = head_dim ** -0.5
-        use_fused = ln is not None and fused_attention_enabled(
-            self.attn_impl, self.use_rel_pos, self.num_heads
-        )
-        if use_fused:
-            # Pallas producer keeps the qkv tensor in the default layout AND
-            # in the (B', S, 3C) tiling the attention kernels read — no
-            # retile between the matmul and the attention (the 2D<->window
-            # reshape alone cost ~26 ms/pass at batch 8: 196 % 8 != 0 forces
-            # a physical sublane re-tiling).
-            g1, be1 = ln
-            wq, bq = _ParamsDense(self.dim, 3 * self.dim, name="qkv")()
-            m = mask if mask is not None else jnp.ones((1, N, 1), jnp.float32)
-            qkv3d = ln_mask_linear_bt(
-                x, g1[None], be1[None], m.astype(x.dtype),
-                wq.astype(self.dtype), bq.astype(self.dtype)[None],
-                eps=1e-6,
-            )
-            qkv = None
-        else:
-            qkv = nn.Dense(3 * self.dim, dtype=self.dtype, name="qkv")(x)
-
-        rel_pos_h = rel_pos_w = None
-        if self.use_rel_pos:
-            rel_pos_h = self.param(
-                "rel_pos_h",
-                nn.initializers.zeros,
-                (2 * self.input_size[0] - 1, head_dim),
-                jnp.float32,
-            )
-            rel_pos_w = self.param(
-                "rel_pos_w",
-                nn.initializers.zeros,
-                (2 * self.input_size[1] - 1, head_dim),
-                jnp.float32,
-            )
-
-        if use_fused:
-            # Fused path: q/k/v stay packed in the qkv projection output,
-            # viewed as (..., 3*heads, hd) — the kernels slice head groups
-            # via BlockSpec index maps, so no transpose/pad/copy of the qkv
-            # tensor ever materialises, and the output lands a free reshape
-            # away from the layout `proj` consumes.
-            qh = qkv3d[:, :, : self.dim].reshape(B, H, W, self.num_heads, head_dim)
-            nwin = self.num_windows
-            if (nwin > 1 or N <= 512) and H + W <= 32:
-                # single combined-table einsum emits rel already padded to
-                # 32 lanes/head; the qkv stays the raw packed projection
-                # output (a bitcast view, NOT the 5D lane-padded layout,
-                # which costs a 68 ms reshape pair)
-                rel_p, sel32 = rel_packed32(qh, rel_pos_h, rel_pos_w, H, W)
-                out = flash_qkv_packed_windows(
-                    qkv3d.reshape(B // nwin, nwin, N, 3 * self.dim),
-                    rel_p.reshape(B // nwin, nwin, N, self.num_heads * 32),
-                    sel32, scale, self.num_heads, head_dim,
-                )  # (B/nwin, nwin, heads*hd, Nw) — d-major for proj_rows
-            elif nwin > 1 or N <= 512:
-                rel, sel = rel_and_scatter(qh, rel_pos_h, rel_pos_w, H, W)
-                out = flash_qkv_relpos_windows(
-                    qkv3d.reshape(B // nwin, nwin, N, 3 * self.num_heads, head_dim),
-                    rel.reshape(B // nwin, nwin, N, self.num_heads, H + W),
-                    sel, scale,
-                )  # (B/nwin, heads, nwin, Nw, hd) — legacy 5D layout
-            else:
-                # Global blocks (4 of 32): packed-lane q-tiled kernel straight
-                # off the qkv projection — no (B,N,3,heads,d) transpose and no
-                # 80->128 lane pad in HBM (those cost ~15 ms/pass at batch 8).
-                # rel arrives position-major (N, B, heads, H+W): the rel
-                # einsum's natural batched-matmul layout, consumed directly
-                # by the kernel (scripts/probe_relv2.py: -1.4 ms/block vs the
-                # two-einsum + concat + pad + transpose chain, bit-exact);
-                # the separable bias itself is rebuilt on the VPU from
-                # transposed score tiles (scripts/probe_gbias.py).
-                rcg = self._rel_cache("rcg")
-                if rcg is not None and rcg.shape[:2] != (H, W):
-                    rcg = None  # cache built for a different input size
-                rel_s, sel = rel_smajor_global(
-                    qh, rel_pos_h, rel_pos_w, H, W, rcg=rcg
-                )
-                out = flash_qkv_packed_global(
-                    qkv3d, rel_s, sel, scale, self.num_heads, head_dim,
-                    H=H, W=W,
-                )  # (B, heads*hd, N) — d-major
-                out = out.reshape(B, 1, self.num_heads * head_dim, N)
-            # the attention output goes straight into the projection kernel
-            # (d-major packed rows or the legacy head-leading 5D; see
-            # PallasHeadProj), and the block residual rides the epilogue.
-            res = None
-            if residual is not None:
-                if out.ndim == 4:
-                    T_, S_ = out.shape[1], out.shape[3]
-                else:
-                    T_, S_ = out.shape[2], out.shape[3]
-                res = residual.reshape(out.shape[0], T_, S_, self.dim)
-            y = PallasHeadProj(self.dim, dtype=self.dtype, name="proj")(out, res)
-            return y.reshape(B, N, self.dim)
-
-        qkv = qkv.reshape(B, N, 3, self.num_heads, head_dim)
-        qkv = qkv.transpose(2, 0, 3, 1, 4)  # (3, B, heads, N, hd)
-        q, k, v = qkv[0], qkv[1], qkv[2]
-
-        if self.attn_impl == "reference":
-            out = attention_with_decomposed_rel_pos(
-                q, k, v, rel_pos_h, rel_pos_w, (H, W), scale
-            )
-        elif self.attn_impl == "flash" and self.use_rel_pos:
-            # CPU fallback / odd head counts: same rel@sel formulation via
-            # XLA (or the q-tiled 3D kernel when a TPU is present).
-            rq = jnp.moveaxis(q, 1, 2).reshape(B, H, W, self.num_heads, head_dim)
-            rel, sel = rel_and_scatter(rq, rel_pos_h, rel_pos_w, H, W)
-            rel = jnp.moveaxis(
-                rel.reshape(B, N, self.num_heads, H + W), 2, 1
-            )  # (B, heads, N, H+W)
-            qs = q * jnp.asarray(scale, q.dtype)
-            if jax.default_backend() == "cpu":
-                out = xla_attention_relpos(qs, k, v, rel, sel)
-            else:
-                d_p = ((head_dim + 127) // 128) * 128
-                pad = ((0, 0), (0, 0), (0, 0), (0, d_p - head_dim))
-                out = flash_attention_relpos(
-                    jnp.pad(qs, pad).reshape(B * self.num_heads, N, d_p),
-                    jnp.pad(k, pad).reshape(B * self.num_heads, N, d_p),
-                    jnp.pad(v, pad).reshape(B * self.num_heads, N, d_p),
-                    rel.reshape(B * self.num_heads, N, H + W),
-                    sel,
-                )
-                out = out.reshape(B, self.num_heads, N, d_p)[..., :head_dim]
-        else:
-            q_aug, k_aug = augment_qk(
-                q, k, rel_pos_h, rel_pos_w, (H, W), scale
-            )
-            use_flash = self.attn_impl in ("aug_flash", "flash") and N >= 1024
-            if use_flash:
-                d_aug = q_aug.shape[-1]
-                d_v = ((head_dim + 127) // 128) * 128
-                v_p = jnp.pad(v, ((0, 0), (0, 0), (0, 0), (0, d_v - head_dim)))
-                out = flash_attention_fullk(
-                    q_aug.reshape(B * self.num_heads, N, d_aug),
-                    k_aug.reshape(B * self.num_heads, N, d_aug),
-                    v_p.reshape(B * self.num_heads, N, d_v),
-                )
-                out = out.reshape(B, self.num_heads, N, d_v)[..., :head_dim]
-            else:
-                out = attention_xla(q_aug, k_aug, v)
-
-        out = out.transpose(0, 2, 1, 3).reshape(B, N, self.dim)
-        return nn.Dense(self.dim, dtype=self.dtype, name="proj")(out)
+    elif cfg.attn_impl == "flash" and cfg.use_rel_pos:
+        rq = jnp.moveaxis(q, 1, 2).reshape(B, H, W, heads, hd)
+        rel, sel = rel_and_scatter(rq, rel_pos_h, rel_pos_w, H, W)
+        rel = jnp.moveaxis(rel.reshape(B, N, heads, H + W), 2, 1)
+        out = xla_attention_relpos(q * jnp.asarray(scale, q.dtype), k, v, rel, sel)
+    else:
+        q_aug, k_aug = augment_qk(q, k, rel_pos_h, rel_pos_w, (H, W), scale)
+        out = attention_xla(q_aug, k_aug, v)
+    out = out.transpose(0, 2, 1, 3).reshape(B, N, dim)
+    return L.dense(p["proj"], out, dt)
 
 
-class MLPBlock(nn.Module):
-    dim: int
-    hidden: int
-    dtype: jnp.dtype = jnp.float32
-    gelu_approximate: bool = False  # torch nn.GELU is exact erf
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Dense(self.hidden, dtype=self.dtype, name="lin1")(x)
-        x = jax.nn.gelu(x, approximate=self.gelu_approximate)
-        return nn.Dense(self.dim, dtype=self.dtype, name="lin2")(x)
-
-
-class _ParamsLN(nn.Module):
-    """Declares LayerNormFP32-compatible params without applying the norm
-    (the fused MLP kernel consumes them directly)."""
-
-    dim: int
-
-    @nn.compact
-    def __call__(self):
-        return (
-            self.param("scale", nn.initializers.ones, (self.dim,), jnp.float32),
-            self.param("bias", nn.initializers.zeros, (self.dim,), jnp.float32),
-        )
-
-
-class _ParamsDense(nn.Module):
-    """Declares nn.Dense-compatible params without applying the layer."""
-
-    in_dim: int
-    out_dim: int
-
-    @nn.compact
-    def __call__(self):
-        return (
-            self.param(
-                "kernel", nn.initializers.lecun_normal(),
-                (self.in_dim, self.out_dim), jnp.float32,
-            ),
-            self.param("bias", nn.initializers.zeros, (self.out_dim,), jnp.float32),
-        )
-
-
-class _ParamsMLP(nn.Module):
-    """MLPBlock-compatible param tree for the fused kernels."""
-
-    dim: int
-    hidden: int
-
-    @nn.compact
-    def __call__(self):
-        w1, b1 = _ParamsDense(self.dim, self.hidden, name="lin1")()
-        w2, b2 = _ParamsDense(self.hidden, self.dim, name="lin2")()
-        return w1, b1, w2, b2
-
-
-class Block(nn.Module):
+def _block(cfg, p, x, mask=None, rc=None, *, window_size, num_windows=1,
+           attn_size=None, geom=None):
     """ViT block on SEQUENCE layout (B', S, C).
 
-    Windowed blocks (window_size > 0) run in the window-carry layout:
+    Windowed blocks (window_size > 0) run either on the compact carry
+    (`geom`: x is (x_full, x_edge)) or in the padded window-carry layout:
     B' = B * nWin, S = window^2, and `mask` re-zeroes padded tokens after
     LN1 (the reference zero-pads activations after LN1 per block,
-    `image_encoder.py:427-431`; in carry mode the pad lanes persist between
-    blocks and accumulate garbage that must not reach attention). Global
-    blocks get (B, H*W, C) with mask=None.
-    """
+    `image_encoder.py:427-431`; in carry mode the pad rows persist between
+    blocks and must not reach attention). Global blocks get (B, H*W, C)
+    with mask=None."""
+    input_size = (window_size,) * 2 if window_size > 0 else attn_size
+    act = "gelu_tanh" if cfg.gelu_approximate else "gelu"
+    n1, n2, mlp = p["norm1"], p["norm2"], p["mlp"]
+    ln1 = (n1["scale"], n1["bias"])
 
-    cfg: SamEncoderConfig
-    window_size: int
-    num_windows: int = 1  # windows folded into B' (window-carry)
-    attn_size: Optional[Tuple[int, int]] = None  # (H, W) for global blocks
-    geom: Optional[CompactGeometry] = None  # compact layout (windowed, fused)
+    def fused_mlp(t):
+        dt = cfg.dtype
+        return ln_mlp_residual_bt(
+            t, n2["scale"][None], n2["bias"][None],
+            mlp["lin1"]["kernel"].astype(dt), mlp["lin1"]["bias"].astype(dt)[None],
+            mlp["lin2"]["kernel"].astype(dt), mlp["lin2"]["bias"].astype(dt)[None],
+            eps=1e-6, activation=act,
+        )
 
-    @nn.compact
-    def __call__(
-        self, x, mask: Optional[jnp.ndarray] = None
+    if geom is not None:
+        xf, xe = _attention_compact(cfg, p["attn"], x[0], x[1], ln1, geom, rc)
+        return fused_mlp(xf), (fused_mlp(xe) if xe is not None else None)
+    if fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads):
+        x = _attention_fused(
+            cfg, p["attn"], x, input_size, num_windows, ln1, mask, x, rc
+        )
+        return fused_mlp(x)
+    shortcut = x
+    x = L.ln(n1, x, 1e-6)
+    if mask is not None:
+        # mask: (nwin, S, 1); broadcast over the leading B'=B*nwin
+        B0 = x.shape[0] // mask.shape[0]
+        x = (
+            x.reshape(B0, mask.shape[0], *x.shape[1:])
+            * mask[None].astype(x.dtype)
+        ).reshape(x.shape)
+    x = shortcut + _attention(cfg, p["attn"], x, input_size)
+    y = L.ln(n2, x, 1e-6)
+    y = L.dense(mlp["lin1"], y, cfg.dtype)
+    y = jax.nn.gelu(y, approximate=cfg.gelu_approximate)
+    return x + L.dense(mlp["lin2"], y, cfg.dtype)
+
+
+def _block_prompt(cfg, pg, features, i):
+    p = L.dense(pg[f"lightweight_mlp_{i}"], features, cfg.dtype)
+    p = jax.nn.gelu(p, approximate=False)
+    return L.dense(pg["shared_mlp"], p, cfg.dtype)
+
+
+def _prompt_features(cfg, pg, image, patch_tokens):
+    """EVP adapter features: handcrafted FFT features + embedding features
+    (reference `PromptGenerator`, `image_encoder.py:218-353`).
+
+    QUIRK (load-bearing for checkpoint parity): the reference's
+    `init_embeddings` (`image_encoder.py:283-286`) reshapes the NHWC patch
+    tokens as `(N, C, H*W)` WITHOUT permuting first — a raw memory
+    reinterpretation that scrambles tokens against channels before the
+    embedding_generator. The trained prompt-generator weights absorbed that
+    scramble, so it is replicated exactly (golden-parity-tested in
+    tests/test_golden_parity.py)."""
+    handcrafted = patch_embed(
+        pg["handcrafted_embed"],
+        fft_highpass(image, cfg.freq_rate).astype(cfg.dtype),
+        cfg.patch_size, cfg.dtype,
+    )  # (B, h, w, prompt_dim)
+    B, h, w, D = patch_tokens.shape
+    scrambled = patch_tokens.reshape(B, D, h * w).transpose(0, 2, 1)
+    embedding = L.dense(pg["embedding_generator"], scrambled, cfg.dtype)
+    return handcrafted + embedding.reshape(B, h, w, -1)
+
+
+def apply(cfg: SamEncoderConfig, params: dict, x: jnp.ndarray,
+          interm: bool = False, relcache: Optional[dict] = None):
+    """SAM image encoder: (B, H, W, 3) -> neck features NHWC, plus the
+    global-block tokens when `interm`. `relcache` is the optional
+    `precompute_rel_tables` output."""
+    relcache = relcache or {}
+    inp = x
+    x = patch_embed(params["patch_embed"], x, cfg.patch_size, cfg.dtype)
+    pg = params["prompt_generator"]
+    prompt_features = _prompt_features(cfg, pg, inp, x)
+    x = x + params["pos_embed"].astype(cfg.dtype)
+
+    B, H, W, D = x.shape
+    win = cfg.window_size
+    has_windows = win > 0 and any(
+        i not in cfg.global_attn_indexes for i in range(cfg.depth)
+    )
+    # Compact (pad-free) carry for the fused path: windowed runs hold
+    # (x_full (B*n_full, win^2, C), x_edge (B, E, C)) — 4096 instead of
+    # 4900 rows/image at ViT-H. Partition ONCE per windowed run; pad-token
+    # attention semantics live in the edge attention's virtual pad key
+    # (ops/compact_window.py).
+    geom = None
+    if has_windows and fused_attention_enabled(
+        cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads
     ):
-        cfg = self.cfg
-        if self.window_size > 0:
-            attn_size = (self.window_size, self.window_size)
-        else:
-            attn_size = self.attn_size
-        assert attn_size is not None
-        attn = Attention(
-            dim=cfg.embed_dim,
-            num_heads=cfg.num_heads,
-            use_rel_pos=cfg.use_rel_pos,
-            input_size=attn_size,
-            dtype=cfg.dtype,
-            attn_impl=cfg.attn_impl,
-            num_windows=self.num_windows,
-            geom=self.geom,
-            name="attn",
-        )
-        hidden_dim = int(cfg.embed_dim * cfg.mlp_ratio)
-        if self.geom is not None:
-            # Compact (pad-free) carry: x is (x_full, x_edge); no validity
-            # mask exists because pad rows are never materialised.
-            assert isinstance(x, tuple)
-            g1, be1 = _ParamsLN(cfg.embed_dim, name="norm1")()
-            xf, xe = attn(x, ln=(g1, be1))
-            g2, be2 = _ParamsLN(cfg.embed_dim, name="norm2")()
-            w1, b1, w2, b2 = _ParamsMLP(cfg.embed_dim, hidden_dim, name="mlp")()
-            act = "gelu_tanh" if cfg.gelu_approximate else "gelu"
-            mlp = lambda t: ln_mlp_residual_bt(
-                t, g2[None], be2[None],
-                w1.astype(cfg.dtype), b1.astype(cfg.dtype)[None],
-                w2.astype(cfg.dtype), b2.astype(cfg.dtype)[None],
-                eps=1e-6, activation=act,
+        g = CompactGeometry(H, W, win)
+        geom = g if g.supported() else None
+    if has_windows and geom is None:
+        # padded window-carry: `valid` re-zeroes the structural pad tokens
+        # after each LN1 (see _block)
+        valid = window_valid_mask(H, W, win)
+        pf_w, _ = window_partition_seq(prompt_features, win)
+        nwin = valid.shape[0]
+    elif has_windows:
+        pf_f, pf_e = compact_partition(prompt_features, geom)
+
+    interm_embeddings = []
+    x_w = None  # carry-layout activations (None <=> x holds grid layout)
+    xc = None   # compact carry (x_full, x_edge)
+    for i in range(cfg.depth):
+        windowed = win > 0 and i not in cfg.global_attn_indexes
+        rc = relcache.get(f"block_{i}", {}).get("attn")
+        bp = params[f"block_{i}"]
+        if windowed and geom is not None:
+            if xc is None:
+                xc = compact_partition(x, geom)
+            xf = xc[0] + _block_prompt(cfg, pg, pf_f, i)
+            xe = (
+                xc[1] + _block_prompt(cfg, pg, pf_e, i)
+                if xc[1] is not None else None
             )
-            return mlp(xf), (mlp(xe) if xe is not None else None)
-        if fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads):
-            # LN1(+mask) fused into the qkv prologue, residual into the proj
-            # epilogue — see Attention.
-            g1, be1 = _ParamsLN(cfg.embed_dim, name="norm1")()
-            x = attn(x, ln=(g1, be1), mask=mask, residual=x)
+            xc = _run_block(cfg, bp, (xf, xe), None, rc,
+                            window_size=win, geom=geom)
+        elif windowed:
+            if x_w is None:
+                x_w, pad_hw = window_partition_seq(x, win)
+            x_w = x_w + _block_prompt(cfg, pg, pf_w, i)
+            x_w = _run_block(cfg, bp, x_w, valid, rc,
+                             window_size=win, num_windows=nwin)
         else:
-            shortcut = x
-            x = LayerNormFP32(eps=1e-6, name="norm1")(x)
-            if mask is not None:
-                # mask: (nwin, S, 1); broadcast over the leading B'=B*nwin
-                B0 = x.shape[0] // mask.shape[0]
-                x = (
-                    x.reshape(B0, mask.shape[0], *x.shape[1:])
-                    * mask[None].astype(x.dtype)
-                ).reshape(x.shape)
-            x = shortcut + attn(x)
-        if fused_attention_enabled(cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads):
-            # Whole MLP as ONE kernel: LN2 in the prologue, GELU between the
-            # two matmuls, residual in the epilogue — the 4*dim hidden never
-            # leaves VMEM (the two-kernel split round-tripped ~400 MB of
-            # hidden per ViT-H block at batch 8).
-            g2, be2 = _ParamsLN(cfg.embed_dim, name="norm2")()
-            w1, b1, w2, b2 = _ParamsMLP(cfg.embed_dim, hidden_dim, name="mlp")()
-            return ln_mlp_residual_bt(
-                x, g2[None], be2[None],
-                w1.astype(cfg.dtype), b1.astype(cfg.dtype)[None],
-                w2.astype(cfg.dtype), b2.astype(cfg.dtype)[None],
-                eps=1e-6,
-                activation="gelu_tanh" if cfg.gelu_approximate else "gelu",
-            )
-        y = LayerNormFP32(eps=1e-6, name="norm2")(x)
-        x = x + MLPBlock(
-            dim=cfg.embed_dim,
-            hidden=hidden_dim,
-            dtype=cfg.dtype,
-            gelu_approximate=cfg.gelu_approximate,
-            name="mlp",
-        )(y)
-        return x
+            if xc is not None:
+                x = compact_unpartition(xc[0], xc[1], geom)
+                xc = None
+            if x_w is not None:
+                x = window_unpartition_seq(x_w, win, pad_hw, (H, W))
+                x_w = None
+            x = x + _block_prompt(cfg, pg, prompt_features, i)
+            x = _run_block(
+                cfg, bp, x.reshape(B, H * W, D), None, rc,
+                window_size=0, attn_size=(H, W),
+            ).reshape(B, H, W, D)
+            if interm:
+                interm_embeddings.append(x)
+    if xc is not None:
+        x = compact_unpartition(xc[0], xc[1], geom)
+    if x_w is not None:
+        x = window_unpartition_seq(x_w, win, pad_hw, (H, W))
+
+    # Neck: 1x1 conv -> LN -> 3x3 conv -> LN (all channel-last).
+    y = L.conv(params["neck_conv1"], x, 1, "VALID", cfg.dtype)
+    y = L.ln(params["neck_ln1"], y, 1e-6)
+    y = L.conv(params["neck_conv2"], y, 1, "SAME", cfg.dtype)
+    y = L.ln(params["neck_ln2"], y, 1e-6)
+
+    if interm:
+        return y, interm_embeddings
+    return y
 
 
-class PromptGenerator(nn.Module):
-    """EVP adapter: handcrafted FFT features + embedding features -> prompts.
-
-    Reference: `PromptGenerator` (`image_encoder.py:218-353`). Emits one
-    (B, H, W, embed_dim) prompt per block.
-    """
-
-    cfg: SamEncoderConfig
-
-    def setup(self):
-        cfg = self.cfg
-        self.embedding_generator = nn.Dense(
-            cfg.prompt_dim, dtype=cfg.dtype, name="embedding_generator"
-        )
-        # PatchEmbed2: conv over the FFT high-passed image (as a matmul).
-        self.handcrafted_embed = PatchEmbedMatmul(
-            cfg.prompt_dim, cfg.patch_size, dtype=cfg.dtype,
-            name="handcrafted_embed",
-        )
-        self.lightweight_mlps = [
-            nn.Dense(cfg.prompt_dim, dtype=cfg.dtype, name=f"lightweight_mlp_{i}")
-            for i in range(cfg.depth)
-        ]
-        self.shared_mlp = nn.Dense(cfg.embed_dim, dtype=cfg.dtype, name="shared_mlp")
-
-    def init_features(self, image: jnp.ndarray, patch_tokens: jnp.ndarray):
-        """image: (B, H, W, 3) preprocessed input; patch_tokens: (B, h, w, D).
-
-        QUIRK (load-bearing for checkpoint parity): the reference's
-        `init_embeddings` (`image_encoder.py:283-286`) reshapes the NHWC
-        patch tokens as `(N, C, H*W)` WITHOUT permuting first — a raw memory
-        reinterpretation that scrambles tokens against channels before the
-        embedding_generator. The trained prompt-generator weights absorbed
-        that scramble, so we replicate it exactly (golden-parity-tested in
-        tests/test_golden_parity.py).
-        """
-        handcrafted = self.handcrafted_embed(
-            fft_highpass(image, self.cfg.freq_rate).astype(self.cfg.dtype)
-        )  # (B, h, w, prompt_dim)
-        B, h, w, D = patch_tokens.shape
-        scrambled = patch_tokens.reshape(B, D, h * w).transpose(0, 2, 1)
-        embedding = self.embedding_generator(scrambled).reshape(B, h, w, -1)
-        return handcrafted + embedding
-
-    def block_prompt(self, features: jnp.ndarray, i: int) -> jnp.ndarray:
-        p = self.lightweight_mlps[i](features)
-        p = jax.nn.gelu(p, approximate=False)
-        return self.shared_mlp(p)
-
-
-class ImageEncoderViT(nn.Module):
-    """SAM image encoder; returns (neck features NHWC, interm global-block tokens)."""
-
-    cfg: SamEncoderConfig
-
-    @nn.compact
-    def __call__(
-        self, x: jnp.ndarray, interm: bool = False
-    ):
-        cfg = self.cfg
-        inp = x
-        x = PatchEmbedMatmul(
-            cfg.embed_dim, cfg.patch_size, dtype=cfg.dtype, name="patch_embed"
-        )(x)  # (B, h, w, D)
-
-        prompt_gen = PromptGenerator(cfg, name="prompt_generator")
-        prompt_features = prompt_gen.init_features(inp, x)
-
-        pos_embed = self.param(
-            "pos_embed",
-            nn.initializers.zeros,
-            (1, cfg.grid, cfg.grid, cfg.embed_dim),
-            jnp.float32,
-        )
-        x = x + pos_embed.astype(cfg.dtype)
-
-        B, H, W, D = x.shape
-        win = cfg.window_size
-        has_windows = win > 0 and any(
-            i not in cfg.global_attn_indexes for i in range(cfg.depth)
-        )
-        # Compact (pad-free) carry for the fused path: windowed runs hold
-        # (x_full (B*n_full, win^2, C), x_edge (B, E, C)) — 4096 instead of
-        # 4900 rows/image at ViT-H (the padded layout's ~20% row tax on
-        # qkv/MLP/proj, measured ~47 ms/pass at batch 8). Partition ONCE per
-        # windowed run; pad-token attention semantics live in the edge
-        # kernel's virtual pad key (ops/compact_window.py).
-        geom = None
-        if has_windows and fused_attention_enabled(
-            cfg.attn_impl, cfg.use_rel_pos, cfg.num_heads
-        ):
-            g = CompactGeometry(H, W, win)
-            geom = g if g.supported() else None
-        if has_windows and geom is None:
-            # Legacy padded window-carry: `valid` re-zeroes the structural
-            # pad tokens after each LN1 (see Block).
-            valid = window_valid_mask(H, W, win)
-            pf_w, pf_pad_hw = window_partition_seq(prompt_features, win)
-            nwin = valid.shape[0]
-        elif has_windows:
-            pf_f, pf_e = compact_partition(prompt_features, geom)
-
-        block_cls = nn.remat(Block) if cfg.remat else Block
-        interm_embeddings = []
-        x_w = None  # carry-layout activations (None <=> x holds grid layout)
-        xc = None   # compact carry (x_full, x_edge)
-        for i in range(cfg.depth):
-            windowed = win > 0 and i not in cfg.global_attn_indexes
-            if windowed and geom is not None:
-                if xc is None:
-                    xc = compact_partition(x, geom)
-                xf = xc[0] + prompt_gen.block_prompt(pf_f, i)
-                xe = (
-                    xc[1] + prompt_gen.block_prompt(pf_e, i)
-                    if xc[1] is not None else None
-                )
-                xc = block_cls(
-                    cfg, window_size=win, geom=geom, name=f"block_{i}"
-                )((xf, xe))
-            elif windowed:
-                if x_w is None:
-                    x_w, pad_hw = window_partition_seq(x, win)
-                x_w = x_w + prompt_gen.block_prompt(pf_w, i)
-                x_w = block_cls(
-                    cfg, window_size=win, num_windows=nwin, name=f"block_{i}"
-                )(x_w, valid)
-            else:
-                if xc is not None:
-                    x = compact_unpartition(xc[0], xc[1], geom)
-                    xc = None
-                if x_w is not None:
-                    x = window_unpartition_seq(x_w, win, pad_hw, (H, W))
-                    x_w = None
-                x = x + prompt_gen.block_prompt(prompt_features, i)
-                x = block_cls(
-                    cfg, window_size=0, attn_size=(H, W), name=f"block_{i}"
-                )(x.reshape(B, H * W, D)).reshape(B, H, W, D)
-                if interm:
-                    interm_embeddings.append(x)
-        if xc is not None:
-            x = compact_unpartition(xc[0], xc[1], geom)
-        if x_w is not None:
-            x = window_unpartition_seq(x_w, win, pad_hw, (H, W))
-
-        # Neck: 1x1 conv -> LN -> 3x3 conv -> LN (all channel-last).
-        y = nn.Conv(
-            cfg.out_chans, kernel_size=(1, 1), use_bias=False, dtype=cfg.dtype,
-            name="neck_conv1",
-        )(x)
-        y = LayerNormFP32(eps=1e-6, name="neck_ln1")(y)
-        y = nn.Conv(
-            cfg.out_chans, kernel_size=(3, 3), padding="SAME", use_bias=False,
-            dtype=cfg.dtype, name="neck_conv2",
-        )(y)
-        y = LayerNormFP32(eps=1e-6, name="neck_ln2")(y)
-
-        if interm:
-            return y, interm_embeddings
-        return y
+def _run_block(cfg, bp, x, mask, rc, **static):
+    """One block, rematerialised in the backward pass when `cfg.remat`."""
+    fn = functools.partial(_block, cfg, **static)
+    if cfg.remat:
+        fn = jax.checkpoint(fn)
+    return fn(bp, x, mask, rc)

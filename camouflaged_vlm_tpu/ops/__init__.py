@@ -1,4 +1,4 @@
-from .norms import layer_norm, LayerNormFP32
+from .norms import layer_norm
 from .window import window_partition, window_unpartition
 from .rel_pos import get_rel_pos_table, attention_with_decomposed_rel_pos
 from .fft_prompt import fft_highpass

@@ -1,4 +1,4 @@
-"""Decomposed rel-pos attention via feature augmentation (TPU-native).
+"""Decomposed rel-pos attention via feature augmentation.
 
 The ViTDet bias is rank-structured: ``bias[q,k] = rel_h[q, kh(k)] +
 rel_w[q, kw(k)]`` with ``rel_h = einsum(q, Rh)``. That outer structure is an
@@ -12,15 +12,14 @@ so attention-with-bias becomes STANDARD attention over augmented features:
     k' = [k,          onehot_kh, onehot_kw]
     softmax(q' @ k'^T) @ v
 
-This removes the (seq x seq) bias materialisation entirely and lets any
-flash-attention kernel run unchanged. For SAM ViT-H:
+This removes the (seq x seq) bias materialisation and lets a standard
+attention kernel run unchanged. For SAM ViT-H:
 
-  * windowed blocks: d' = 80 + 14 + 14 = 108 <= 128 — the bias rides in the
-    head-dim padding the MXU needed anyway (zero extra FLOPs);
+  * windowed blocks: d' = 80 + 14 + 14 = 108 -> padded 128;
   * global blocks: d' = 80 + 64 + 64 = 208 -> padded 256.
 
-Numerics: the augmented features are cast to the compute dtype (bf16 on
-TPU); logits still accumulate in fp32 via preferred_element_type.
+Numerics: the augmented features are cast to the compute dtype; logits
+accumulate in fp32 via preferred_element_type.
 """
 
 from __future__ import annotations

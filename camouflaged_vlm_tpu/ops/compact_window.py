@@ -5,7 +5,7 @@ every windowed attention and crops afterwards
 (`/root/reference/models/mmseg/models/sam/image_encoder.py:507-553`): SAM
 ViT-H runs 64x64 tokens as 70x70 = 25 windows of 196 tokens, so every
 row-wise op (qkv, MLP, proj) processes 4900 rows where only 4096 are real —
-a ~20% FLOP/bandwidth tax (~47 ms/pass at batch 8, measured round 2).
+a ~20% FLOP/bandwidth tax.
 
 This module removes the pad rows. Key observation: the reference applies
 LN1 on the UNPADDED grid and pads with zeros afterwards
@@ -23,11 +23,8 @@ query collapses to ONE virtual key whose logit
     Lpad = logsumexp_t [ q.k_bias*scale + LSE(rel_h over kh_t)
                                         + LSE(rel_w over kw_t) ]
 
-is computed in XLA from the rel factors and delivered to the kernel in rel
-lane LPAD_LANE — CONCATENATED in at construction (an `.at[].set` scatter
-into the built rel tensor cost 24 ms/pass of dynamic-update-slices, and
-computing Lpad inside the kernel cost 28 ms/pass of poorly-vectorised
-per-head masked reductions; both measured round 3). Softmax over
+is computed from the rel factors and delivered to the attention in rel
+lane LPAD_LANE, concatenated in when rel is built. Softmax over
 [real keys | virtual pad key] is algebraically identical to the
 reference's softmax over the padded window.
 
@@ -39,9 +36,9 @@ Layout: a windowed run carries two tensors instead of one padded one —
                                        within each window
 
 All edge windows share ONE uniform row count R_u = max over edge groups of
-(rows-per-window), so a single kernel call covers them; windows with fewer
+(rows-per-window), so a single attention call covers them; windows with fewer
 real rows (the corner) carry zero-filled dummy rows whose key columns are
-masked with -1e30 in-kernel and whose query rows are discarded at
+masked with -1e30 and whose query rows are discarded at
 unpartition. ViT-H: n_full = 16 (3136 rows), n_edge = 9, R_u = 112 ->
 4144 rows/image vs 4900 padded.
 """
@@ -250,8 +247,6 @@ def _edge_consts_np(geom: CompactGeometry):
 
 def edge_consts(geom: CompactGeometry, dtype):
     sel, km = _edge_consts_np(geom)
-    # kmask carries a unit mid-axis so its (1, R) blocks satisfy Mosaic's
-    # last-two-dims rule (a (1, R) block of an (n, R) array does not)
     return jnp.asarray(sel, dtype), jnp.asarray(km[:, None, :], jnp.float32)
 
 
@@ -296,11 +291,10 @@ def edge_rel_fast(
 ) -> jnp.ndarray:
     """`edge_rel_lpad` against precomputed kron tables -> (B, n, R, heads*32).
 
-    The original builds rel per edge GROUP with 5-D einsums over (nr, nc)
+    `edge_rel_lpad` builds rel per edge GROUP with 5-D einsums over (nr, nc)
     batch dims, computes Lpad with lane-slice logsumexps on (..., heads, 28)
-    tensors, then concatenates the Lpad lane and merges (heads, 32) lanes —
-    ~20 ms/iter of XLA glue at batch 8 (the (16, 28)-minor layouts pad 4.6x
-    and every op pays it; trace round 3). Here:
+    tensors, then concatenates the Lpad lane and merges (heads, 32) lanes.
+    Here:
 
       * rel comes from ONE einsum per group against the hoisted kron table
         (`make_redge_tables` — same [rel_h | rel_w | 0] packing as the
@@ -375,8 +369,7 @@ def edge_rel_lpad(
     (kh range x kw range); `Lpad = logsumexp_t [ q.k_bias*scale
     + LSE(rel_h over kh_t) + LSE(rel_w over kw_t) ]` — exactly
     `log sum_pad exp(s_pad)` of the reference's padded-window scores. The
-    lane is CONCATENATED in when rel is built (a post-hoc `.at[].set`
-    lowered to 24 ms/pass of dynamic-update-slices). Dummy rows (corner
+    lane is concatenated in when rel is built. Dummy rows (corner
     padding) get zero rel; their outputs are discarded and their key
     columns masked."""
     B, E, heads, hd = q_edge.shape

@@ -6,11 +6,11 @@ zero out a centred square of the shifted spectrum whose area is
 ``rate`` of the image (side = 2 * int(sqrt(H*W*rate)/2)), inverse-transform,
 and take |real part|.
 
-TPU-native formulation: the mask is a separable outer product
-``m_h(u) * m_w(v)``, so ``ifft2(mask * fft2(x))`` collapses to two circulant
-matmuls ``A @ X @ B^T`` with ``A = ifft∘diag(m_h)∘fft`` — MXU work instead of
-XLA's generic FFT, which measures ~40x slower for this shape (155 ms vs ~4 ms
-at batch 8, 1024px). The real part of the complex product is
+Formulation: the mask is a separable outer product ``m_h(u) * m_w(v)``, so
+``ifft2(mask * fft2(x))`` collapses to two circulant matmuls
+``A @ X @ B^T`` with ``A = ifft∘diag(m_h)∘fft`` — dense matrix products in
+place of a generic FFT (which of the two is faster on the GPU is not
+measured yet). The real part of the complex product is
 ``Ar X Br^T - Ai X Bi^T`` (X is real). `fft_highpass_fft` keeps the direct
 jnp.fft path as the parity oracle.
 """

@@ -1,31 +1,17 @@
-"""Pallas linear layers for the ViT attention data path.
+"""Fused linear layers of the ViT blocks, written as XLA formulations.
 
-Why these exist: XLA's convolution fusions prefer batch-minor output layouts,
-and `pallas_call` constrains its operands to the default (row-major) layout —
-so feeding an XLA-produced qkv projection into the attention kernels makes
-XLA insert a full layout copy + reshape of the ~300 MB qkv tensor per block
-(measured ~2.9 ms/block at batch 8). Producing qkv with a Pallas matmul keeps
-everything in the default layout: the 5D head-view reshape becomes a free
-bitcast and the copies vanish. Symmetrically, `proj_from_heads` consumes the
-attention kernels' head-leading (B, heads, M, d) output directly, folding the
-moveaxis + proj-input relayout into the projection matmul.
+Each function is one block-level step: LN (+ pad mask) -> qkv projection,
+LN -> MLP -> residual, attention output -> projection (+ residual). XLA hands
+the matrix products to the GPU's GEMM libraries with bias/activation
+epilogues and fuses the LN prologues into elementwise kernels. Matrix
+products take the compute dtype with float32 accumulation; LN statistics
+and activations are float32.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .vjp import on_cpu as _on_cpu, pallas_with_xla_vjp
-
-# Lane-tile alignment required of the hidden-grid MLP kernel's chunked dims
-# (module-level so interpret-mode tests can shrink it for tiny shapes).
-_HGRID_ALIGN = 128
-
 
 
 def _apply_act(acc, activation):
@@ -38,191 +24,29 @@ def _apply_act(acc, activation):
     return acc
 
 
-def _linear_kernel(activation, x_ref, w_ref, b_ref, o_ref):
-    acc = jax.lax.dot(
-        x_ref[:], w_ref[:], preferred_element_type=jnp.float32
-    )  # (bm, bn)
-    acc = _apply_act(acc + b_ref[:].astype(jnp.float32), activation)
-    o_ref[:] = acc.astype(o_ref.dtype)
-
-
-def _pick_block(M: int, target: int) -> int:
-    """Largest multiple-of-8 divisor of M that is <= target (Mosaic needs the
-    second-to-last block dim divisible by 8 or equal to the array dim)."""
-    if M % 8 != 0 or M <= target:
-        return M
-    best = 8
-    for bm in range(8, target + 1, 8):
-        if M % bm == 0:
-            best = bm
-    return best
-
-
-def linear_pallas(
-    x: jnp.ndarray,   # (M, K)
-    w: jnp.ndarray,   # (K, N)
-    b: jnp.ndarray,   # (1, N)
-    block_m: int = 512,
-    block_n: int = 1920,
-    activation: str | None = None,
-) -> jnp.ndarray:
-    """out = activation(x @ w + b), tiled (block_m, K) x (K, block_n).
-
-    Grid is (N-tiles, M-tiles) with M innermost so each weight column block
-    stays VMEM-resident across the whole M sweep.
-    """
-    M, K = x.shape
-    N = w.shape[1]
-    orig_m = M
-    block_m = max(8, (block_m // 8) * 8)
-    bm = _pick_block(M, block_m) if M % 8 == 0 else M
-    if bm % 8 != 0 or bm > 2 * block_m:
-        # no multiple-of-8 tile divides M (e.g. M=4900 at batch 1) —
-        # zero-pad rows to the next block boundary and slice after
-        pad_to = -(-M // block_m) * block_m
-        x = jnp.pad(x, ((0, pad_to - M), (0, 0)))
-        M, bm = pad_to, block_m
-    block_m = bm
-    if N % block_n != 0:
-        block_n = N
-    kernel = functools.partial(_linear_kernel, activation)
-
-    def ref(x, w, b):
-        acc = jnp.dot(x, w, preferred_element_type=jnp.float32)
-        acc = _apply_act(acc + b.astype(jnp.float32), activation)
-        return acc.astype(x.dtype)
-
-    if _on_cpu():
-        return ref(x, w, b)[:orig_m]
-
-    run = lambda x, w, b: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((M, N), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(N // block_n, M // block_m),
-            in_specs=[
-                pl.BlockSpec((block_m, K), lambda n, m: (m, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((K, block_n), lambda n, m: (0, n),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, block_n), lambda n, m: (0, n),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (block_m, block_n), lambda n, m: (m, n), memory_space=pltpu.VMEM
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * M * K * N,
-            bytes_accessed=(x.size + M * N) * x.dtype.itemsize
-            + w.size * w.dtype.itemsize * max(1, M // block_m // 8),
-            transcendentals=M * N if activation else 0,
-        ),
-    )(x, w, b)
-    out = pallas_with_xla_vjp(run, ref)(x, w, b)
-    return out[:orig_m] if orig_m != M else out
-
-
-def _ln_linear_act_bt_kernel(eps, activation, x_ref, g_ref, be_ref, w_ref, b_ref, o_ref):
-    x = x_ref[0].astype(jnp.float32)  # (S, K)
-    mu = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mu), axis=-1, keepdims=True)
-    xn = (x - mu) * jax.lax.rsqrt(var + eps)
-    xn = xn * g_ref[:].astype(jnp.float32) + be_ref[:].astype(jnp.float32)
-    acc = jax.lax.dot(
-        xn.astype(o_ref.dtype), w_ref[:], preferred_element_type=jnp.float32
-    )
-    acc = _apply_act(acc + b_ref[:].astype(jnp.float32), activation)
-    o_ref[0] = acc.astype(o_ref.dtype)
+def _ln32(x, gamma, beta, eps):
+    x32 = x.astype(jnp.float32)
+    mu = jnp.mean(x32, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
+    xn = (x32 - mu) * jax.lax.rsqrt(var + eps)
+    return x32, xn * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
 
 
 def ln_linear_act_bt(
-    x: jnp.ndarray,       # (B, S, K) — S may be any length
+    x: jnp.ndarray,       # (B, S, K)
     gamma: jnp.ndarray,   # (1, K)
     beta: jnp.ndarray,    # (1, K)
     w: jnp.ndarray,       # (K, N)
     b: jnp.ndarray,       # (1, N)
     eps: float = 1e-5,
     activation: str | None = "quick_gelu",
-    block_n: int = 2048,
-    block_s: int = 1024,
 ) -> jnp.ndarray:
-    """act(LN(x) @ w + b) for batched odd-length sequences (CLIP MLP half 1:
-    LN folds into the matmul prologue, QuickGELU into the epilogue). Long
-    divisible S (global ViT blocks) is tiled by block_s to bound VMEM; LN is
-    row-wise so S-tiling is exact."""
-    B, S, K = x.shape
-    N = w.shape[1]
-    if N % block_n != 0:
-        block_n = N
-    bs = block_s if (S % block_s == 0 and S > block_s) else S
-    kernel = functools.partial(_ln_linear_act_bt_kernel, eps, activation)
-
-    def ref(x, gamma, beta, w, b):
-        x32 = x.astype(jnp.float32)
-        mu = jnp.mean(x32, axis=-1, keepdims=True)
-        var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-        xn = (x32 - mu) * jax.lax.rsqrt(var + eps)
-        xn = xn * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
-        acc = jnp.einsum(
-            "bsk,kn->bsn", xn.astype(x.dtype), w, preferred_element_type=jnp.float32
-        )
-        return _apply_act(acc + b.astype(jnp.float32), activation).astype(x.dtype)
-
-    if _on_cpu():
-        return ref(x, gamma, beta, w, b)
-
-    run = lambda x, gamma, beta, w, b: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((B, S, N), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(N // block_n, B, S // bs),
-            in_specs=[
-                pl.BlockSpec((1, bs, K), lambda n, b_, s: (b_, s, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda n, b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda n, b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((K, block_n), lambda n, b_, s: (0, n),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, block_n), lambda n, b_, s: (0, n),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, bs, block_n), lambda n, b_, s: (b_, s, n),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * S * K * N,
-            bytes_accessed=(x.size * max(1, N // block_n) + B * S * N) * x.dtype.itemsize,
-            transcendentals=B * S * N,
-        ),
-    )(x, gamma, beta, w, b)
-    return pallas_with_xla_vjp(run, ref)(x, gamma, beta, w, b)
-
-
-def _ln_mask_linear_bt_kernel(eps, x_ref, g_ref, be_ref, m_ref, w_ref, b_ref, o_ref):
-    x = x_ref[0].astype(jnp.float32)  # (S, K)
-    mu = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mu), axis=-1, keepdims=True)
-    xn = (x - mu) * jax.lax.rsqrt(var + eps)
-    xn = xn * g_ref[:].astype(jnp.float32) + be_ref[:].astype(jnp.float32)
-    xn = xn * m_ref[0].astype(jnp.float32)  # (S, 1) row mask
-    acc = jax.lax.dot(
-        xn.astype(o_ref.dtype), w_ref[:], preferred_element_type=jnp.float32
+    """act(LN(x) @ w + b) in x.dtype."""
+    _, xn = _ln32(x, gamma, beta, eps)
+    acc = jnp.einsum(
+        "bsk,kn->bsn", xn.astype(x.dtype), w, preferred_element_type=jnp.float32
     )
-    acc += b_ref[:].astype(jnp.float32)
-    o_ref[0] = acc.astype(o_ref.dtype)
+    return _apply_act(acc + b.astype(jnp.float32), activation).astype(x.dtype)
 
 
 def ln_mask_linear_bt(
@@ -233,184 +57,21 @@ def ln_mask_linear_bt(
     w: jnp.ndarray,       # (K, N)
     b: jnp.ndarray,       # (1, N)
     eps: float = 1e-6,
-    block_n: int = 3840,
-    block_s: int = 1024,
 ) -> jnp.ndarray:
-    """(LN(x) * mask) @ w + b — the ViT block's LN1 + pad-token re-zeroing
-    folded into the qkv matmul prologue (window-carry mode; the standalone
-    LN1+mask fusion costs an extra full-tensor HBM round trip per block).
-
-    The mask row for program b' is mask[b' % nwin] — every image shares the
-    same per-window validity pattern. Long divisible S (global blocks) is
-    tiled by block_s (LN is row-wise, so S-tiling is exact)."""
-    Bp, S, K = x.shape
-    N = w.shape[1]
+    """(LN(x) * mask) @ w + b — the ViT block's LN1 and pad-token re-zeroing
+    ahead of the qkv projection. Every image shares the same per-window
+    validity pattern, so row b' takes mask[b' % nwin]."""
+    Bp, S, _ = x.shape
     nwin = mask.shape[0]
-    if N % block_n != 0:
-        block_n = N
-    bs = block_s if (S % block_s == 0 and S > block_s) else S
-    kernel = functools.partial(_ln_mask_linear_bt_kernel, eps)
-
-    def ref(x, gamma, beta, mask, w, b):
-        x32 = x.astype(jnp.float32)
-        mu = jnp.mean(x32, axis=-1, keepdims=True)
-        var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-        xn = (x32 - mu) * jax.lax.rsqrt(var + eps)
-        xn = xn * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
-        m = jnp.broadcast_to(
-            mask[None].astype(jnp.float32), (Bp // nwin, nwin, S, 1)
-        ).reshape(Bp, S, 1)
-        xn = xn * m
-        acc = jnp.einsum(
-            "bsk,kn->bsn", xn.astype(x.dtype), w, preferred_element_type=jnp.float32
-        )
-        return (acc + b.astype(jnp.float32)).astype(x.dtype)
-
-    if _on_cpu():
-        return ref(x, gamma, beta, mask, w, b)
-
-    run = lambda x, gamma, beta, mask, w, b: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((Bp, S, N), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(N // block_n, Bp, S // bs),
-            in_specs=[
-                pl.BlockSpec((1, bs, K), lambda n, b_, s: (b_, s, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda n, b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda n, b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, bs, 1), lambda n, b_, s: (b_ % nwin, s, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((K, block_n), lambda n, b_, s: (0, n),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, block_n), lambda n, b_, s: (0, n),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, bs, block_n), lambda n, b_, s: (b_, s, n),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel"),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * Bp * S * K * N,
-            bytes_accessed=(x.size * max(1, N // block_n) + Bp * S * N)
-            * x.dtype.itemsize,
-            transcendentals=Bp * S * N,
-        ),
-    )(x, gamma, beta, mask, w, b)
-    return pallas_with_xla_vjp(run, ref)(x, gamma, beta, mask, w, b)
-
-
-def _ln_mlp_residual_bt_kernel(
-    eps, activation, x_ref, g_ref, be_ref, w1_ref, b1_ref, w2_ref, b2_ref, o_ref
-):
-    x32 = x_ref[0].astype(jnp.float32)  # (bs, K)
-    mu = jnp.mean(x32, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-    xn = (x32 - mu) * jax.lax.rsqrt(var + eps)
-    xn = xn * g_ref[:].astype(jnp.float32) + be_ref[:].astype(jnp.float32)
-    h = jax.lax.dot(
-        xn.astype(o_ref.dtype), w1_ref[:], preferred_element_type=jnp.float32
+    _, xn = _ln32(x, gamma, beta, eps)
+    m = jnp.broadcast_to(
+        mask[None].astype(jnp.float32), (Bp // nwin, nwin, S, 1)
+    ).reshape(Bp, S, 1)
+    acc = jnp.einsum(
+        "bsk,kn->bsn", (xn * m).astype(x.dtype), w,
+        preferred_element_type=jnp.float32,
     )
-    h = _apply_act(h + b1_ref[:].astype(jnp.float32), activation)
-    acc = jax.lax.dot(
-        h.astype(o_ref.dtype), w2_ref[:], preferred_element_type=jnp.float32
-    )
-    acc += b2_ref[:].astype(jnp.float32) + x32  # pre-norm residual
-    o_ref[0] = acc.astype(o_ref.dtype)
-
-
-def _ln_mlp_residual_hgrid_kernel(
-    eps, activation, n_h,
-    x_ref, g_ref, be_ref, w1_ref, b1_ref, w2_ref, b2_ref, o_ref,
-    acc_ref, xn_ref,
-):
-    # Hidden-chunked variant: the grid's minor ("arbitrary") axis walks H in
-    # chunks, accumulating partials into an f32 VMEM scratch — GELU is
-    # elementwise in the hidden dim, so
-    #   sum_i act(xn @ W1_i + b1_i) @ W2_i == act(xn @ W1 + b1) @ W2
-    # exactly (up to f32 summation order). More programs = more MXU/VPU
-    # cross-program overlap where the single-chunk kernel ran only Bp
-    # programs (CLIP: 8) and its LN/GELU stretches serialised against the
-    # dots (scripts/probe_clipmlp.py: 594.7 -> 533.5 us/call, -10%).
-    i = pl.program_id(2)
-
-    @pl.when(i == 0)
-    def _():
-        x32 = x_ref[0].astype(jnp.float32)
-        mu = jnp.mean(x32, axis=-1, keepdims=True)
-        var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-        xn = (x32 - mu) * jax.lax.rsqrt(var + eps)
-        xn = xn * g_ref[:].astype(jnp.float32) + be_ref[:].astype(jnp.float32)
-        xn_ref[...] = xn.astype(xn_ref.dtype)  # LN computed once, not per chunk
-        acc_ref[...] = x32 + b2_ref[:].astype(jnp.float32)
-
-    h = jax.lax.dot(
-        xn_ref[...], w1_ref[:], preferred_element_type=jnp.float32
-    )
-    h = _apply_act(h + b1_ref[:].astype(jnp.float32), activation)
-    acc_ref[...] += jax.lax.dot(
-        h.astype(o_ref.dtype), w2_ref[:], preferred_element_type=jnp.float32
-    )
-
-    @pl.when(i == n_h - 1)
-    def _():
-        o_ref[0] = acc_ref[...].astype(o_ref.dtype)
-
-
-def _ln_mlp_residual_bwd_kernel(
-    eps, activation,
-    x_ref, g_ref, be_ref, w1_ref, b1_ref, w2_ref, b2_ref, gr_ref,
-    dx_ref, dh_ref, hact_ref, xn_ref, dga_ref, dbe_ref, db1_ref,
-):
-    # Pallas backward for the fused MLP's dx path. XLA autodiff fused the
-    # LN-backward reductions into the dxn dgemm at 51 TF/s (~120 ms of the
-    # batch-2 train step, scripts/trace_train.py); here the three backward
-    # dgemms run clean and the LN/activation VPU work stays in VMEM. The
-    # weight gradients need cross-row-block contractions, so the kernel
-    # streams dh/hact/xn to HBM for two XLA dgemms in the VJP wrapper, and
-    # emits per-program dgamma/dbeta/db1 partials (summed XLA-side).
-    x32 = x_ref[0].astype(jnp.float32)
-    mu = jnp.mean(x32, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-    rstd = jax.lax.rsqrt(var + eps)
-    xhat = (x32 - mu) * rstd
-    gamma = g_ref[:].astype(jnp.float32)
-    xn = xhat * gamma + be_ref[:].astype(jnp.float32)
-    xnb = xn.astype(dx_ref.dtype)
-    pre1 = jax.lax.dot(
-        xnb, w1_ref[:], preferred_element_type=jnp.float32
-    ) + b1_ref[:].astype(jnp.float32)
-    hact, act_vjp = jax.vjp(lambda p: _apply_act(p, activation), pre1)
-    g_up = gr_ref[0].astype(jnp.float32)  # upstream grad (bs, K)
-    dh_pre = jax.lax.dot_general(
-        g_up.astype(dx_ref.dtype), w2_ref[:],
-        (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-    )  # (bs, H) = g @ W2^T
-    dh = act_vjp(dh_pre)[0]
-    dxn = jax.lax.dot_general(
-        dh.astype(dx_ref.dtype), w1_ref[:],
-        (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32,
-    )  # (bs, K) = dh @ W1^T
-    dxhat = dxn * gamma
-    m1 = jnp.mean(dxhat, axis=-1, keepdims=True)
-    m2 = jnp.mean(dxhat * xhat, axis=-1, keepdims=True)
-    dx = rstd * (dxhat - m1 - xhat * m2) + g_up
-    dx_ref[0] = dx.astype(dx_ref.dtype)
-    dh_ref[0] = dh.astype(dh_ref.dtype)
-    hact_ref[0] = hact.astype(hact_ref.dtype)
-    xn_ref[0] = xnb
-    # partials padded to 8 sublanes (Mosaic block tiling); row 0 is the value
-    pad8 = lambda v: jnp.broadcast_to(v, (8, v.shape[-1]))
-    dga_ref[0, 0] = pad8(jnp.sum(dxn * xhat, axis=0, keepdims=True))
-    dbe_ref[0, 0] = pad8(jnp.sum(dxn, axis=0, keepdims=True))
-    db1_ref[0, 0] = pad8(jnp.sum(dh, axis=0, keepdims=True))
+    return (acc + b.astype(jnp.float32)).astype(x.dtype)
 
 
 def ln_mlp_residual_bt(
@@ -423,243 +84,17 @@ def ln_mlp_residual_bt(
     b2: jnp.ndarray,      # (1, K)
     eps: float = 1e-6,
     activation: str = "gelu_tanh",
-    block_s: int = 512,
-    hidden_grid: int = 1,
 ) -> jnp.ndarray:
-    """x + MLP(LN(x)) as ONE kernel: the (S, 4*dim) hidden never leaves VMEM
-    (the two-kernel split wrote+read ~400 MB of hidden per ViT-H block at
-    batch 8, ~16 ms/pass). Both weight matrices stay VMEM-resident across
-    the whole grid.
-
-    hidden_grid > 1 walks the hidden dim as an extra (minor, "arbitrary")
-    grid axis with an f32 scratch accumulator — for callers whose row count
-    gives too few programs to overlap the LN/GELU VPU stretches (the CLIP
-    tower: S=577 is prime, so grid is (B, 1); the SAM encoder's 84+ row
-    blocks keep hidden_grid=1)."""
-    Bp, S, K = x.shape
-    H = w1.shape[1]
-    bs = block_s if (S % block_s == 0 and S > block_s) else S
-    kernel = functools.partial(_ln_mlp_residual_bt_kernel, eps, activation)
-
-    def ref(x, gamma, beta, w1, b1, w2, b2):
-        x32 = x.astype(jnp.float32)
-        mu = jnp.mean(x32, axis=-1, keepdims=True)
-        var = jnp.mean(jnp.square(x32 - mu), axis=-1, keepdims=True)
-        xn = (x32 - mu) * jax.lax.rsqrt(var + eps)
-        xn = xn * gamma.astype(jnp.float32) + beta.astype(jnp.float32)
-        h = jnp.einsum(
-            "bsk,kh->bsh", xn.astype(x.dtype), w1, preferred_element_type=jnp.float32
-        )
-        h = _apply_act(h + b1.astype(jnp.float32), activation)
-        acc = jnp.einsum(
-            "bsh,hk->bsk", h.astype(x.dtype), w2, preferred_element_type=jnp.float32
-        )
-        return (acc + b2.astype(jnp.float32) + x32).astype(x.dtype)
-
-    if _on_cpu():
-        return ref(x, gamma, beta, w1, b1, w2, b2)
-
-    # hidden_grid needs every chunked lane/sublane dim tile-aligned: hc is
-    # the lane dim of the w1 block and the sublane dim of the w2 block, and
-    # K is the lane dim of the output block. Tiny/test configs (K=32,
-    # hc=32) fall back to the single-chunk kernel.
-    if (
-        hidden_grid > 1
-        and H % hidden_grid == 0
-        and (H // hidden_grid) % _HGRID_ALIGN == 0
-        and K % _HGRID_ALIGN == 0
-    ):
-        n_h = hidden_grid
-        hc = H // n_h
-        hkernel = functools.partial(
-            _ln_mlp_residual_hgrid_kernel, eps, activation, n_h
-        )
-        run_h = lambda x, gamma, beta, w1, b1, w2, b2: pl.pallas_call(
-            hkernel,
-            out_shape=jax.ShapeDtypeStruct((Bp, S, K), x.dtype),
-            grid=(Bp, S // bs, n_h),
-            in_specs=[
-                pl.BlockSpec((1, bs, K), lambda b_, s, i: (b_, s, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s, i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s, i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((K, hc), lambda b_, s, i: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, hc), lambda b_, s, i: (0, i),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((hc, K), lambda b_, s, i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s, i: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, bs, K), lambda b_, s, i: (b_, s, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=[
-                pltpu.VMEM((bs, K), jnp.float32),
-                pltpu.VMEM((bs, K), x.dtype),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "arbitrary"),
-                vmem_limit_bytes=100 * 1024 * 1024,
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=4 * Bp * S * K * H,
-                bytes_accessed=(2 * x.size) * x.dtype.itemsize
-                + (w1.size + w2.size) * w1.dtype.itemsize,
-                transcendentals=Bp * S * H,
-            ),
-        )(x, gamma, beta, w1, b1, w2, b2)
-        return pallas_with_xla_vjp(run_h, ref)(x, gamma, beta, w1, b1, w2, b2)
-
-    run = lambda x, gamma, beta, w1, b1, w2, b2: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((Bp, S, K), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(Bp, S // bs),
-            in_specs=[
-                pl.BlockSpec((1, bs, K), lambda b_, s: (b_, s, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((K, H), lambda b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, H), lambda b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((H, K), lambda b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, bs, K), lambda b_, s: (b_, s, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * Bp * S * K * H,
-            bytes_accessed=(2 * x.size) * x.dtype.itemsize
-            + (w1.size + w2.size) * w1.dtype.itemsize,
-            transcendentals=Bp * S * H,
-        ),
-    )(x, gamma, beta, w1, b1, w2, b2)
-    bwd_kernel = functools.partial(_ln_mlp_residual_bwd_kernel, eps, activation)
-    # The backward holds ~5 (bs, H) f32 transients in VMEM — a 1008-row edge
-    # block at H=5120 is 103 MB. Row-block the backward tighter than the fwd.
-    bs_b = _pick_block(S, 256)
-    nS = S // bs_b
-
-    def run_bwd(x, gamma, beta, w1, b1, w2, b2, g):
-        vspec = lambda lanes: pl.BlockSpec(
-            (1, bs_b, lanes), lambda b_, s: (b_, s, 0), memory_space=pltpu.VMEM
-        )
-        dx, dh, hact, xn, dga, dbe, db1 = pl.pallas_call(
-            bwd_kernel,
-            out_shape=[
-                jax.ShapeDtypeStruct((Bp, S, K), x.dtype),
-                jax.ShapeDtypeStruct((Bp, S, H), x.dtype),
-                jax.ShapeDtypeStruct((Bp, S, H), x.dtype),
-                jax.ShapeDtypeStruct((Bp, S, K), x.dtype),
-                jax.ShapeDtypeStruct((Bp, nS, 8, K), jnp.float32),
-                jax.ShapeDtypeStruct((Bp, nS, 8, K), jnp.float32),
-                jax.ShapeDtypeStruct((Bp, nS, 8, H), jnp.float32),
-            ],
-            grid=(Bp, nS),
-            in_specs=[
-                vspec(K),
-                pl.BlockSpec((1, K), lambda b_, s: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((K, H), lambda b_, s: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, H), lambda b_, s: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((H, K), lambda b_, s: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, K), lambda b_, s: (0, 0), memory_space=pltpu.VMEM),
-                vspec(K),
-            ],
-            out_specs=[
-                vspec(K), vspec(H), vspec(H), vspec(K),
-                pl.BlockSpec((1, 1, 8, K), lambda b_, s: (b_, s, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, 8, K), lambda b_, s: (b_, s, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, 8, H), lambda b_, s: (b_, s, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel"),
-                vmem_limit_bytes=100 * 1024 * 1024,
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=6 * Bp * S * K * H,
-                bytes_accessed=(4 * x.size + 2 * Bp * S * H) * x.dtype.itemsize
-                + 2 * (w1.size + w2.size) * w1.dtype.itemsize,
-                transcendentals=2 * Bp * S * H,
-            ),
-        )(x, gamma, beta, w1, b1, w2, b2, g)
-        R = Bp * S
-        xn2 = xn.reshape(R, K)
-        dh2 = dh.reshape(R, H)
-        g2 = g.reshape(R, K).astype(x.dtype)
-        dW1 = jax.lax.dot_general(
-            xn2, dh2.astype(x.dtype), (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).astype(w1.dtype)
-        dW2 = jax.lax.dot_general(
-            hact.reshape(R, H), g2, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        ).astype(w2.dtype)
-        db2 = jnp.sum(g.astype(jnp.float32), axis=(0, 1), keepdims=False)[None].astype(b2.dtype)
-        db1_ = jnp.sum(db1[:, :, 0], axis=(0, 1))[None].astype(b1.dtype)
-        dgamma = jnp.sum(dga[:, :, 0], axis=(0, 1))[None].astype(gamma.dtype)
-        dbeta = jnp.sum(dbe[:, :, 0], axis=(0, 1))[None].astype(beta.dtype)
-        return dx, dgamma, dbeta, dW1, db1_, dW2, db2
-
-    @jax.custom_vjp
-    def f(x, gamma, beta, w1, b1, w2, b2):
-        return run(x, gamma, beta, w1, b1, w2, b2)
-
-    def f_fwd(*args):
-        return run(*args), args
-
-    def f_bwd(res, g):
-        return run_bwd(*res, g)
-
-    f.defvjp(f_fwd, f_bwd)
-    return f(x, gamma, beta, w1, b1, w2, b2)
-
-
-def _proj_rows_kernel(x_ref, w_ref, b_ref, o_ref):
-    # x (1, 1, K, bs) d-major; out (1, 1, bs, C) row-major
-    acc = jax.lax.dot_general(
-        x_ref[0, 0], w_ref[:], (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-    )  # (bs, C)
-    acc += b_ref[:].astype(jnp.float32)
-    o_ref[0, 0] = acc.astype(o_ref.dtype)
-
-
-def _proj_rows_res_kernel(x_ref, w_ref, b_ref, r_ref, o_ref):
-    acc = jax.lax.dot_general(
-        x_ref[0, 0], w_ref[:], (((0,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
+    """x + MLP(LN(x)): the pre-norm MLP half of a ViT block."""
+    x32, xn = _ln32(x, gamma, beta, eps)
+    h = jnp.einsum(
+        "bsk,kh->bsh", xn.astype(x.dtype), w1, preferred_element_type=jnp.float32
     )
-    acc += b_ref[:].astype(jnp.float32) + r_ref[0, 0].astype(jnp.float32)
-    o_ref[0, 0] = acc.astype(o_ref.dtype)
-
-
-def _proj_rows_ref(x, w, b, res=None):
-    acc = jnp.einsum("btks,ko->btso", x, w, preferred_element_type=jnp.float32)
-    acc = acc + b.astype(jnp.float32)
-    if res is not None:
-        acc = acc + res.astype(jnp.float32)
-    return acc.astype(x.dtype)
+    h = _apply_act(h + b1.astype(jnp.float32), activation)
+    acc = jnp.einsum(
+        "bsh,hk->bsk", h.astype(x.dtype), w2, preferred_element_type=jnp.float32
+    )
+    return (acc + b2.astype(jnp.float32) + x32).astype(x.dtype)
 
 
 def proj_rows(
@@ -667,197 +102,24 @@ def proj_rows(
     w: jnp.ndarray,             # (K, out)
     b: jnp.ndarray,             # (1, out)
     res: jnp.ndarray = None,    # (B, T, S, out) — optional residual
-    block_s: int = 1024,
 ) -> jnp.ndarray:
-    """out[b, t, s, :] = x[b, t, :, s] @ w + bias (+ res) -> (B, T, S, out).
-
-    Consumes the attention kernels' d-major (heads*d sublane-packed) output:
-    the head-leading 5D layout's 80-lane minor physically pads to 128 in HBM
-    (+60% bytes) and capped `proj_from_heads` at ~114 TF/s; the packed-row
-    layout reads contiguously and contracts the full K=heads*d dim per MXU
-    pass (measured 2.2x faster at ViT-H windowed shapes,
-    scripts/probe_dmajor.py)."""
-    B, T, K, S = x.shape
-    out = w.shape[-1]
-
-    def ref(*a):
-        return _proj_rows_ref(*a)
-
-    if _on_cpu():
-        return ref(x, w, b) if res is None else ref(x, w, b, res)
-
-    bs = block_s if (S % block_s == 0 and S > block_s) else S
-    if res is None:
-        kernel, args = _proj_rows_kernel, (x, w, b)
-        in_specs = [
-            pl.BlockSpec((1, 1, K, bs), lambda b_, t, s: (b_, t, 0, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, out), lambda b_, t, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, out), lambda b_, t, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-    else:
-        kernel, args = _proj_rows_res_kernel, (x, w, b, res)
-        in_specs = [
-            pl.BlockSpec((1, 1, K, bs), lambda b_, t, s: (b_, t, 0, s),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((K, out), lambda b_, t, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, out), lambda b_, t, s: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, bs, out), lambda b_, t, s: (b_, t, s, 0),
-                         memory_space=pltpu.VMEM),
-        ]
-    run = lambda *a: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((B, T, S, out), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(B, T, S // bs),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec(
-                (1, 1, bs, out), lambda b_, t, s: (b_, t, s, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "parallel"),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * T * S * K * out,
-            bytes_accessed=(x.size + (2 if res is not None else 1) * B * T * S * out)
-            * x.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(*a)
-    return pallas_with_xla_vjp(run, ref)(*args)
-
-
-def _proj_kernel(heads, x_ref, w_ref, b_ref, o_ref):
-    # x: (1, heads, 1, S, d); w: (heads, d, out) — reads index LEADING axes
-    acc = b_ref[:].astype(jnp.float32)  # (1, out) broadcasts over S
-    for h in range(heads):
-        acc = acc + jax.lax.dot(
-            x_ref[0, h, 0], w_ref[h], preferred_element_type=jnp.float32
-        )
-    o_ref[0, 0] = acc.astype(o_ref.dtype)
-
-
-def _proj_res_kernel(heads, x_ref, w_ref, b_ref, r_ref, o_ref):
-    acc = b_ref[:].astype(jnp.float32) + r_ref[0, 0].astype(jnp.float32)
-    for h in range(heads):
-        acc = acc + jax.lax.dot(
-            x_ref[0, h, 0], w_ref[h], preferred_element_type=jnp.float32
-        )
-    o_ref[0, 0] = acc.astype(o_ref.dtype)
-
-
-def proj_from_heads_res(
-    x: jnp.ndarray,    # (B, heads, T, S, d) — attention kernel output layout
-    w: jnp.ndarray,    # (heads, d, out)
-    b: jnp.ndarray,    # (1, out)
-    res: jnp.ndarray,  # (B, T, S, out) — the block's residual shortcut
-) -> jnp.ndarray:
-    """`proj_from_heads` with the residual add folded into the epilogue —
-    the standalone x+attn adds measured ~14 ms/pass at batch 8."""
-    B, heads, T, S, d = x.shape
-    out = w.shape[-1]
-    kernel = functools.partial(_proj_res_kernel, heads)
-
-    def ref(x, w, b, res):
-        acc = jnp.einsum(
-            "bhtsd,hdo->btso", x, w, preferred_element_type=jnp.float32
-        )
-        return (acc + b.astype(jnp.float32) + res.astype(jnp.float32)).astype(x.dtype)
-
-    if _on_cpu():
-        return ref(x, w, b, res)
-
-    run = lambda x, w, b, res: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((B, T, S, out), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(B, T),
-            in_specs=[
-                pl.BlockSpec((1, heads, 1, S, d), lambda b_, t: (b_, 0, t, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((heads, d, out), lambda b_, t: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, out), lambda b_, t: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, S, out), lambda b_, t: (b_, t, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 1, S, out), lambda b_, t: (b_, t, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * T * S * heads * d * out,
-            bytes_accessed=(x.size + 2 * B * T * S * out) * x.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(x, w, b, res)
-    return pallas_with_xla_vjp(run, ref)(x, w, b, res)
+    """out[b, t, s, :] = x[b, t, :, s] @ w + bias (+ res) -> (B, T, S, out)."""
+    acc = jnp.einsum("btks,ko->btso", x, w, preferred_element_type=jnp.float32)
+    acc = acc + b.astype(jnp.float32)
+    if res is not None:
+        acc = acc + res.astype(jnp.float32)
+    return acc.astype(x.dtype)
 
 
 def proj_from_heads(
-    x: jnp.ndarray,   # (B, heads, T, S, d) — attention kernel output layout,
-                      # M tiled as T x S (S = window length or a 512-row tile)
-    w: jnp.ndarray,   # (heads, d, out) — reshaped (heads*d, out) projection
-    b: jnp.ndarray,   # (1, out)
+    x: jnp.ndarray,    # (B, heads, T, S, d) — head-leading attention output
+    w: jnp.ndarray,    # (heads, d, out) — reshaped (heads*d, out) projection
+    b: jnp.ndarray,    # (1, out)
+    res: jnp.ndarray = None,  # (B, T, S, out) — optional residual
 ) -> jnp.ndarray:
-    """out[b, t, s, :] = sum_h x[b, h, t, s] @ w[h] + bias -> (B, T, S, out).
-
-    Folds the head-leading -> feature-contiguous moveaxis into the projection
-    matmul: the relayout never materialises in HBM. The (S, d) trailing block
-    dims equal the array dims, so any S (e.g. 196) is Mosaic-tileable.
-    """
-    B, heads, T, S, d = x.shape
-    out = w.shape[-1]
-    kernel = functools.partial(_proj_kernel, heads)
-
-    def ref(x, w, b):
-        acc = jnp.einsum(
-            "bhtsd,hdo->btso", x, w, preferred_element_type=jnp.float32
-        )
-        return (acc + b.astype(jnp.float32)).astype(x.dtype)
-
-    if _on_cpu():
-        return ref(x, w, b)
-
-    run = lambda x, w, b: pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((B, T, S, out), x.dtype),
-        grid_spec=pl.GridSpec(
-            grid=(B, T),
-            in_specs=[
-                pl.BlockSpec((1, heads, 1, S, d), lambda b_, t: (b_, 0, t, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((heads, d, out), lambda b_, t: (0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, out), lambda b_, t: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (1, 1, S, out), lambda b_, t: (b_, t, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * B * T * S * heads * d * out,
-            bytes_accessed=(x.size + B * T * S * out) * x.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(x, w, b)
-    return pallas_with_xla_vjp(run, ref)(x, w, b)
+    """out[b, t, s, :] = sum_h x[b, h, t, s] @ w[h] + bias (+ res)."""
+    acc = jnp.einsum("bhtsd,hdo->btso", x, w, preferred_element_type=jnp.float32)
+    acc = acc + b.astype(jnp.float32)
+    if res is not None:
+        acc = acc + res.astype(jnp.float32)
+    return acc.astype(x.dtype)

@@ -1,7 +1,7 @@
 """Layer normalisation with fp32 statistics.
 
-TPU rationale: bf16 matmuls feed the MXU, but norm statistics must be fp32
-for numerical parity with the reference (which runs LayerNorm in fp32 even
+bf16 matmuls feed the tensor cores, but norm statistics must be fp32 for
+numerical parity with the reference (which runs LayerNorm in fp32 even
 under fp16 — `/root/reference/alpha_clip_rw/model.py:162-168`). The SAM tower
 uses eps=1e-6 (`/root/reference/models/sam_maskdecoder_edge.py:129`), the
 decoder/CLIP towers use eps=1e-5 (torch default).
@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-6):
@@ -27,16 +26,3 @@ def layer_norm(x, scale, bias, eps: float = 1e-6):
     y = (x32 - mean) * jax.lax.rsqrt(var + eps)
     y = y * scale.astype(jnp.float32) + bias.astype(jnp.float32)
     return y.astype(orig_dtype)
-
-
-class LayerNormFP32(nn.Module):
-    """flax module wrapper: fp32-statistics LayerNorm over the last axis."""
-
-    eps: float = 1e-6
-
-    @nn.compact
-    def __call__(self, x):
-        dim = x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (dim,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (dim,), jnp.float32)
-        return layer_norm(x, scale, bias, self.eps)

@@ -5,13 +5,15 @@ The reference adds a rank-structured bias to the attention logits:
 ``rel_h = einsum('bhwc,hkc->bhwk', q, Rh)`` — see
 `/root/reference/models/mmseg/models/sam/image_encoder.py:589-625`.
 
-TPU design notes:
+Design notes:
   * ``rel_h``/``rel_w`` are tiny (seq x side) compared to the full logits
-    (seq x seq); we always compute them as standalone einsums (MXU-friendly),
-    then either materialise the bias (XLA path, fine for 14x14 windows) or
-    regenerate it tile-by-tile inside the Pallas flash-attention kernel
-    (global 64x64 blocks — see ops/flash_attention.py).
+    (seq x seq); they are computed as standalone einsums, then either the
+    bias is materialised (the XLA formulations, ops/attention.py) or it is
+    rebuilt tile by tile inside the global-attention kernel
+    (ops/global_attention_triton.py).
   * softmax runs in fp32 regardless of the matmul dtype.
+  * This module is the dense float32 reference the other paths are tested
+    against.
 """
 
 from __future__ import annotations

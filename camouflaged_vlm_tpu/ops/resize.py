@@ -6,8 +6,7 @@ downsamples the 1024px mask to 336px in-graph
 (`/root/reference/test_ovcos_maskdecoder_edge.py:111`). For exact semantics we
 build the two separable interpolation matrices (2 taps per output pixel,
 half-pixel centres, edge clamped) at trace time and apply them as dense
-matmuls — which is also the TPU-friendly formulation: two MXU matmuls instead
-of gathers.
+matmuls (two matrix products instead of gathers).
 
 Used for: decoder output upsample 256->1024
 (`/root/reference/models/sam_maskdecoder_edge.py:380-388`), alpha handoff

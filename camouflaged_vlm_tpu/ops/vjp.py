@@ -1,12 +1,12 @@
-"""custom_vjp glue: Pallas forward, XLA-formulation backward.
+"""custom_vjp glue: kernel forward, XLA-formulation backward.
 
 Pallas kernels have no autodiff rule, but the training path differentiates
 through every encoder block (the EVP prompt generator is trainable and sits
 upstream, `/root/reference/train_ovcos_maskdecoder_edge.py:301-303`). Rather
-than hand-writing backward kernels, each kernel pairs with its mathematically
-identical XLA formulation: the forward runs the Pallas kernel, the backward
-re-linearises the XLA version (rematerialisation-style — costs one extra XLA
-forward inside the backward pass, which training at these sizes absorbs).
+than hand-writing backward kernels, a kernel pairs with its mathematically
+identical XLA formulation: the forward runs the kernel, the backward
+re-linearises the XLA version (one extra XLA forward inside the backward
+pass).
 """
 
 from __future__ import annotations
@@ -39,10 +39,3 @@ def pallas_with_xla_vjp(
 
     f.defvjp(f_fwd, f_bwd)
     return f
-
-
-def on_cpu() -> bool:
-    """True when the default backend is CPU: kernel wrappers degrade to
-    their XLA reference formulation so the fused encoder/CLIP structure is
-    ONE code path that tests/dryruns exercise end-to-end without a TPU."""
-    return jax.default_backend() == "cpu"

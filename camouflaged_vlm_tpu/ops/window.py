@@ -48,8 +48,7 @@ def window_partition_seq(x: jnp.ndarray, window: int) -> Tuple[jnp.ndarray, Tupl
 
     Used by the encoder's window-carry mode: x stays in this layout across
     consecutive windowed blocks (one partition per windowed run instead of a
-    partition + unpartition pair per block — those transposes measured
-    ~32 ms/pass at batch 8)."""
+    partition + unpartition pair per block)."""
     xw, pad_hw = window_partition(x, window)
     return xw.reshape(xw.shape[0], window * window, x.shape[-1]), pad_hw
 

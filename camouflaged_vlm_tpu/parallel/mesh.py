@@ -2,7 +2,9 @@
 
 Replaces the reference's NCCL DDP machinery
 (`/root/reference/train_ovcos_maskdecoder_edge.py:25-29,287-293`) with a
-`jax.sharding.Mesh` over ICI. Axes:
+`jax.sharding.Mesh`: the device list reshaped to (data, model). Every card
+of an NVLink host reaches every other at the same rate, so the mesh follows
+the algorithm alone. Axes:
 
   * `data`  — batch sharding (data parallelism). Gradient psum is inserted
     by XLA from the sharding annotations — note this *fixes* the reference's
@@ -11,9 +13,9 @@ Replaces the reference's NCCL DDP machinery
     semantics and document the deviation.
   * `model` — tensor parallelism over attention heads / MLP hidden dims
     (Megatron-style). Not needed for capacity (the 1B-param cascade fits one
-    chip) but free to enable for latency scaling.
+    card) but free to enable for latency scaling.
 
-Multi-host pods: call `jax.distributed.initialize()` before `make_mesh`
+Multi-host runs: call `jax.distributed.initialize()` before `make_mesh`
 (all jax processes then see the global device set).
 """
 

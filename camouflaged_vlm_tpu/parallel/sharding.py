@@ -4,9 +4,9 @@ Megatron-style sharding expressed as path->PartitionSpec rules; XLA's GSPMD
 propagation inserts the collectives. Column-parallel layers (qkv / MLP up
 projections) shard their output features; row-parallel layers (attention
 output / MLP down projections) shard their input features, producing one
-all-reduce per block — riding ICI, never DCN.
+all-reduce per block.
 
-flax Dense kernels are (in_features, out_features).
+Dense kernels are (in_features, out_features).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""MaPLe prompt-learner training (TPU-native dassl-trainer equivalent).
+"""MaPLe prompt-learner training (dassl-trainer equivalent).
 
 The reference ships a dassl `MaPLeAlphaCLIP(TrainerX)` trainer
 (`/root/reference/cocotrainers/mapleAlphaCLIP.py:300-440`) that produced the
@@ -36,10 +36,12 @@ def maple_loss(logits: jnp.ndarray, labels: jnp.ndarray) -> jnp.ndarray:
 
 
 def make_maple_train_step(
-    model,
+    clip_forward: Callable,
     tx: optax.GradientTransformation,
 ) -> Callable[[TrainState, Dict[str, jnp.ndarray]], Tuple[TrainState, Dict[str, jnp.ndarray]]]:
-    """`model` is a CustomClip; batch keys: clip_image (B,h,w,3),
+    """`clip_forward(params, clip_image, clip_alpha, prefix, suffix,
+    eot_indices, bank_features)` returns the CustomCLIP outputs (e.g.
+    `OVCOSCascade.clip_forward`); batch keys: clip_image (B,h,w,3),
     clip_alpha (B,h,w,1), label_id (B,), prefix/suffix/eot_indices/
     bank_features for the TRAIN class split.
 
@@ -51,7 +53,7 @@ def make_maple_train_step(
 
     def loss_fn(trainable, frozen, batch):
         params = combine_params(trainable, frozen)
-        _, _, _, logits = model.apply(
+        _, _, _, logits = clip_forward(
             params,
             batch["clip_image"],
             batch["clip_alpha"],

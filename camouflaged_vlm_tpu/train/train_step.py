@@ -18,13 +18,14 @@ only the trainable subtree.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct, traverse_util
 
+from ..utils.tree import flatten_dict, unflatten_dict
 from .losses import segmentation_loss
 from .optim import trainable_mask
 
@@ -36,26 +37,29 @@ def partition_params(params, trainable_subtrees=None) -> Tuple[Dict, Dict]:
     (optim.TRAINABLE_SUBTREES); the MaPLe prompt trainer passes
     ('prompt_learner',) instead."""
     if trainable_subtrees is None:
-        labels = traverse_util.flatten_dict(trainable_mask(params))
+        labels = flatten_dict(trainable_mask(params))
     else:
-        labels = traverse_util.flatten_dict(
-            trainable_mask(params, trainable_subtrees)
-        )
-    flat = traverse_util.flatten_dict(params)
+        labels = flatten_dict(trainable_mask(params, trainable_subtrees))
+    flat = flatten_dict(params)
     train = {k: v for k, v in flat.items() if labels[k] == "train"}
     frozen = {k: v for k, v in flat.items() if labels[k] == "freeze"}
     return train, frozen
 
 
 def combine_params(train: Dict, frozen: Dict):
-    return traverse_util.unflatten_dict({**train, **frozen})
+    return unflatten_dict({**train, **frozen})
 
 
-class TrainState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jnp.ndarray
     trainable: Any   # flat dict of trainable leaves
     frozen: Any      # flat dict of frozen leaves
     opt_state: Any
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     @property
     def params(self):
@@ -94,9 +98,8 @@ def make_train_step(
     sharding stays on the per-microbatch batch dim; an in-jit reshape of a
     batch-sharded axis would insert a resharding collective) and the step
     `lax.scan`s the forward+backward over microbatches, averaging gradients
-    before ONE optimizer update. Activation memory is one microbatch's
-    (ViT-H no-remat fits per-chip microbatch 4 on 16 GB; PERF.md), the
-    extra carry is just the trainable-subtree gradients. Per-image-mean
+    before ONE optimizer update. Activation memory is one microbatch's;
+    the extra carry is just the trainable-subtree gradients. Per-image-mean
     losses (iou/bce) average to exactly the full-batch loss; bbce's
     batch-level negative weight is computed per microbatch (the standard
     gradient-accumulation deviation)."""
@@ -107,16 +110,15 @@ def make_train_step(
             # Precomputed class-text features (exact: the text tower is
             # frozen during cascade training — see
             # OVCOSCascade.forward_with_text). cli/train encodes them once.
-            masks, edges = model.apply(
+            masks, edges = model.forward_with_text(
                 params,
                 batch["inp"],
                 batch["clip_image"],
                 batch["clip_mask"],
                 batch["text_features"],
-                method=model.forward_with_text,
             )
         else:
-            masks, edges = model.apply(
+            masks, edges = model(
                 params,
                 batch["inp"],
                 batch["clip_image"],

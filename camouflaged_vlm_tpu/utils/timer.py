@@ -1,7 +1,7 @@
 """Wall-clock timing and running averages.
 
 Mirrors the reference's `utils.Timer`/`Averager` (`/root/reference/utils.py:14-37`)
-with an added `block_until_ready`-aware device timer for TPU benchmarking.
+with an added `block_until_ready`-aware device timer.
 """
 
 from __future__ import annotations

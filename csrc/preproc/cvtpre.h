@@ -1,6 +1,6 @@
 /* cvtpre — native host-side image preprocessing for camouflaged_vlm_tpu.
  *
- * TPU-native replacement for the runtime half of the reference's data
+ * Native replacement for the runtime half of the reference's data
  * pipeline (the reference leans on torch's C++ DataLoader workers +
  * Pillow's C decoders; see /root/reference/train_ovcos_maskdecoder_edge.py:66
  * and /root/reference/datasets/wrappers.py:22-35).  Every routine here is

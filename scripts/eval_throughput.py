@@ -1,4 +1,4 @@
-"""End-to-end EVAL throughput on the real chip (VERDICT round-1 item #7).
+"""End-to-end EVAL throughput on the GPU.
 
 bench.py times only the device pipeline; the north-star number is
 `cli/evaluate.py`'s images_per_sec over a realistic dataset — including host

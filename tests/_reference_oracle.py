@@ -1,6 +1,5 @@
 """Import scaffolding that loads the REFERENCE's own torch modules as test
-oracles (VERDICT round-1 item #2: golden activation parity must compare
-against the reference's code, not re-derivations).
+oracles.
 
 The reference (`/root/reference`) cannot be imported wholesale: its package
 `models/__init__.py` pulls mmseg (hard mmcv assert) and open_clip, and

@@ -1,15 +1,13 @@
-"""bench.py orchestration tests (mocked subprocesses — no TPU).
+"""bench.py orchestration tests (mocked subprocesses — no GPU needed).
 
-The round-3 driver record was lost because the old bench printed nothing
-until an entire multi-batch sweep finished (BENCH_r03.json: rc=124, empty
-tail). These pin the properties that prevent a repeat:
+These pin the sweep's reporting properties:
 
   * the headline JSON line is printed as soon as the FIRST batch lands
     (and re-printed last), so a kill mid-sweep still leaves a record;
   * the wall-clock budget skips batches it can no longer afford;
-  * a transiently-failed batch (nonzero rc) is retried once, a timed-out
-    one is not;
-  * an all-failed sweep exits nonzero instead of recording 0.0 img/s.
+  * a failed batch (nonzero rc) is retried once, a timed-out one is not;
+  * an all-failed sweep exits nonzero instead of recording 0.0 img/s;
+  * every line names its device, and MFU divides by the device's own peak.
 """
 
 from __future__ import annotations
@@ -31,9 +29,18 @@ def bench(monkeypatch):
     return mod
 
 
+H100 = {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}
+
+
 class _R:
     def __init__(self, rc, out):
         self.returncode, self.stdout, self.stderr = rc, out, ""
+
+
+def _child(value):
+    """stdout of a successful `bench.py --batch B` child."""
+    return (json.dumps({"device": H100}) + "\n"
+            + json.dumps({"metric": "x", "value": value, "device": H100}) + "\n")
 
 
 def _metric_lines(capsys):
@@ -44,7 +51,7 @@ def _metric_lines(capsys):
 def test_headline_streams_first_and_prints_last(bench, capsys, monkeypatch):
     def fake_run(cmd, capture_output, text, timeout):
         B = int(cmd[cmd.index("--batch") + 1])
-        return _R(0, json.dumps({"metric": "x", "value": {8: 20.7, 32: 20.8, 64: 20.6, 1: 17.0}[B]}) + "\n")
+        return _R(0, _child({8: 20.7, 32: 20.8, 64: 20.6, 1: 17.0}[B]))
 
     monkeypatch.setattr(bench.subprocess, "run", fake_run)
     bench.main()
@@ -55,7 +62,11 @@ def test_headline_streams_first_and_prints_last(bench, capsys, monkeypatch):
     assert "mfu" in lines[0] and "achieved_tflops" in lines[0]
     # last line is the final headline with the best batch
     assert lines[-1]["value"] == 20.8
-    assert lines[-1]["vs_baseline"] == round(20.8 / 20.0, 3)
+    assert "vs_baseline" not in lines[-1]
+    # every line names the device the children ran on
+    assert all(l["device"] == H100 for l in lines)
+    tflops = bench.cascade_flops_per_image() * 20.8 / 1e12
+    assert lines[-1]["mfu"] == round(tflops / 989.0, 3)
 
 
 def test_transient_failure_retried_timeout_not(bench, capsys, monkeypatch):
@@ -68,8 +79,7 @@ def test_transient_failure_retried_timeout_not(bench, capsys, monkeypatch):
             return _R(1, "transfer closed")  # transient: retried
         if B == 1:
             raise subprocess.TimeoutExpired(cmd, timeout)  # not retried
-        val = {8: 20.7, 32: 20.8}[B]
-        return _R(0, json.dumps({"metric": "x", "value": val}) + "\n")
+        return _R(0, _child({8: 20.7, 32: 20.8}[B]))
 
     monkeypatch.setattr(bench.subprocess, "run", fake_run)
     bench.main()
@@ -90,7 +100,7 @@ def test_budget_exhaustion_skips_later_batches(bench, capsys, monkeypatch):
 
     def fake_run(cmd, capture_output, text, timeout):
         B = int(cmd[cmd.index("--batch") + 1])
-        return _R(0, json.dumps({"metric": "x", "value": 20.0 + B / 100}) + "\n")
+        return _R(0, _child(20.0 + B / 100))
 
     monkeypatch.setattr(bench.subprocess, "run", fake_run)
     monkeypatch.setattr(bench.time, "monotonic", lambda: next(clock, 999.5))
@@ -102,10 +112,9 @@ def test_budget_exhaustion_skips_later_batches(bench, capsys, monkeypatch):
 
 
 def test_under_min_budget_skips_even_without_headline(bench, capsys, monkeypatch):
-    """ADVICE r4: in the all-batches-fail regime the old guard still gave
-    every later batch a MIN_BATCH_S attempt (which cannot cover a remote
-    compile), overshooting the budget by ~10 min. Under MIN_BATCH_S the
-    sweep must skip, headline or not."""
+    """In the all-batches-fail regime, a later batch with less than
+    MIN_BATCH_S of budget left is skipped, headline or not (an attempt
+    could not finish its compile and would overshoot the budget)."""
     monkeypatch.setattr(bench, "BUDGET_S", 1000.0)
     calls = []
     # t_start=0; batch 8 checks remaining at t=0 (runs, fails); batches 1
@@ -129,16 +138,15 @@ def test_under_min_budget_skips_even_without_headline(bench, capsys, monkeypatch
 
 
 def test_b1_in_sweep_and_per_batch_streams(bench, capsys, monkeypatch):
-    """Round-5: b1 has a guaranteed sweep slot (VERDICT r4 missing #2), and
-    every per-batch outcome streams as its own line the moment it resolves
-    (ADVICE r4: diagnostics must survive a driver kill even when no batch
-    succeeds)."""
+    """b1 has a guaranteed sweep slot, and every per-batch outcome streams
+    as its own line the moment it resolves (diagnostics survive a kill even
+    when no batch succeeds)."""
     timeouts = []
 
     def fake_run(cmd, capture_output, text, timeout):
         B = int(cmd[cmd.index("--batch") + 1])
         timeouts.append((B, timeout))
-        return _R(0, json.dumps({"metric": "x", "value": {8: 20.7, 1: 17.0, 32: 20.8}[B]}) + "\n")
+        return _R(0, _child({8: 20.7, 1: 17.0, 32: 20.8}[B]))
 
     monkeypatch.setattr(bench.subprocess, "run", fake_run)
     bench.main()
@@ -162,32 +170,23 @@ def test_all_failed_exits_nonzero(bench, capsys, monkeypatch):
     assert any("error" in l for l in lines)
 
 
-def test_fast_init_matches_real_init_tree(tiny_cascade_2class):
-    """`factory.fast_init_cascade_params` (bench.py's default since round 5:
-    skips the ~113s model-init compile per subprocess) must produce EXACTLY
-    the real init's tree — structure, shapes, dtypes — and params the fused
-    inference program actually runs on."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
+def test_peak_table_h100(bench):
+    """The H100 SXM entry is NVIDIA's 989 TF/s dense bf16."""
+    assert bench.peak_bf16_tflops("NVIDIA H100 80GB HBM3") == 989.0
 
-    from camouflaged_vlm_tpu.factory import fast_init_cascade_params
 
-    cfg, model, bank, real = tiny_cascade_2class
-    fast = fast_init_cascade_params(model, cfg, bank)
-    real_flat = jax.tree_util.tree_flatten_with_path(real)
-    fast_flat = jax.tree_util.tree_flatten_with_path(fast)
-    assert real_flat[1] == fast_flat[1]  # identical treedef
-    for (pr, lr), (pf, lf) in zip(real_flat[0], fast_flat[0]):
-        assert pr == pf
-        assert lr.shape == lf.shape and lr.dtype == lf.dtype, (pr, lr, lf)
+def test_peak_table_unknown_kind_raises(bench):
+    """A device missing from the table is an error, not a default."""
+    with pytest.raises(KeyError, match="A100"):
+        bench.peak_bf16_tflops("NVIDIA A100-SXM4-80GB")
 
-    from camouflaged_vlm_tpu.factory import make_example_inputs
 
-    inp, cimg, cmask = make_example_inputs(cfg, batch=1)
-    probs, pred, score = model.apply(
-        fast, inp, cimg, cmask, bank["prefix"], bank["suffix"],
-        bank["eot_indices"], bank["bank_features"], method=model.infer_cascade,
-    )
-    assert np.all(np.isfinite(np.asarray(probs, np.float32)))
-    assert np.all(np.isfinite(np.asarray(score, np.float32)))
+def test_child_refuses_cpu(bench, capsys):
+    """`bench.py --batch B` on a machine without a GPU exits non-zero and
+    prints no metric (the CPU is never measured as a device)."""
+    with pytest.raises(SystemExit) as e:
+        bench.device_info()
+    assert e.value.code != 0
+    lines = _metric_lines(capsys)
+    assert lines and all("metric" not in l for l in lines)
+    assert lines[0]["device"]["platform"] == "cpu"

@@ -13,11 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from camouflaged_vlm_tpu.models.sam_encoder import (
-    ImageEncoderViT,
-    SamEncoderConfig,
-    make_rcomb,
-)
+from camouflaged_vlm_tpu.models import sam_encoder
+from camouflaged_vlm_tpu.models.sam_encoder import SamEncoderConfig, make_rcomb
 from camouflaged_vlm_tpu.ops.compact_window import (
     REL_LANES,
     CompactGeometry,
@@ -27,7 +24,7 @@ from camouflaged_vlm_tpu.ops.compact_window import (
     edge_consts,
     edge_rel_lpad,
 )
-from camouflaged_vlm_tpu.ops.flash_attention import flash_qkv_packed_edge
+from camouflaged_vlm_tpu.ops.attention import qkv_packed_edge
 
 
 def test_geometry_vith():
@@ -64,7 +61,7 @@ def _real_row_mask(g):
 
 @pytest.mark.parametrize("H,W,win", [(64, 64, 14), (5, 5, 2), (7, 5, 3)])
 def test_edge_attention_analytic_vs_literal(H, W, win):
-    """The in-kernel virtual-pad-key factorisation must equal literally
+    """The virtual-pad-key factorisation must equal literally
     materialising the padded window with bias-valued pad k/v rows."""
     g = CompactGeometry(H, W, win)
     heads, hd = 4, 8
@@ -85,7 +82,7 @@ def test_edge_attention_analytic_vs_literal(H, W, win):
         q_e, rcomb, bias[dim : 2 * dim].reshape(heads, hd), scale, g
     )
     sel, kmask = edge_consts(g, jnp.float32)
-    got = flash_qkv_packed_edge(
+    got = qkv_packed_edge(
         qkv_e.reshape(B, g.n_edge, g.R_u, 3 * dim),
         rel_e.reshape(B, g.n_edge, g.R_u, heads * REL_LANES),
         sel, bias[2 * dim :].reshape(heads, hd),
@@ -104,18 +101,17 @@ def test_edge_attention_analytic_vs_literal(H, W, win):
 
 @pytest.mark.parametrize("img", [64, 80])
 def test_compact_encoder_matches_reference_impl(img):
-    """Tiny encoder, fp32: attn_impl='flash' (compact layout; kernels fall
-    back to their XLA references on CPU) vs attn_impl='reference' (dense
+    """Tiny encoder with 8 heads (the fused path's head count), fp32:
+    attn_impl='flash' (compact layout) vs attn_impl='reference' (dense
     bias, padded windows). img=80 -> grid 5, window 2: grid % window != 0
     exercises the edge-window path end to end."""
-    kw = dict(img_size=img, gelu_approximate=False, dtype=jnp.float32)
+    kw = dict(img_size=img, num_heads=8, gelu_approximate=False, dtype=jnp.float32)
     cfg_f = SamEncoderConfig.tiny(attn_impl="flash", **kw)
     cfg_r = SamEncoderConfig.tiny(attn_impl="reference", **kw)
     x = jnp.asarray(np.random.RandomState(2).randn(2, img, img, 3), jnp.float32)
-    enc_f = ImageEncoderViT(cfg_f)
-    params = enc_f.init(jax.random.PRNGKey(0), x)
-    y_f = enc_f.apply(params, x)
-    y_r = ImageEncoderViT(cfg_r).apply(params, x)
+    params = sam_encoder.init(cfg_f, jax.random.PRNGKey(0))
+    y_f = sam_encoder.apply(cfg_f, params, x)
+    y_r = sam_encoder.apply(cfg_r, params, x)
     np.testing.assert_allclose(np.asarray(y_f), np.asarray(y_r), atol=2e-4)
 
 
@@ -123,14 +119,14 @@ def test_compact_encoder_matches_reference_impl(img):
 def test_compact_encoder_grads_flow():
     """The trainable prompt generator must receive gradients through the
     compact path (custom-VJP kernels included)."""
-    cfg = SamEncoderConfig.tiny(attn_impl="flash", img_size=80, dtype=jnp.float32)
+    cfg = SamEncoderConfig.tiny(attn_impl="flash", img_size=80, num_heads=8,
+                                dtype=jnp.float32)
     x = jnp.asarray(np.random.RandomState(3).randn(1, 80, 80, 3), jnp.float32)
-    enc = ImageEncoderViT(cfg)
-    params = enc.init(jax.random.PRNGKey(0), x)
+    params = sam_encoder.init(cfg, jax.random.PRNGKey(0))
 
     def loss(p):
-        return jnp.sum(enc.apply(p, x) ** 2)
+        return jnp.sum(sam_encoder.apply(cfg, p, x) ** 2)
 
     grads = jax.grad(loss)(params)
-    g = grads["params"]["prompt_generator"]["shared_mlp"]["kernel"]
+    g = grads["prompt_generator"]["shared_mlp"]["kernel"]
     assert float(jnp.abs(g).max()) > 0.0

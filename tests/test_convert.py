@@ -2,8 +2,9 @@
 
 Strategy: build a synthetic torch-layout state dict with exactly the
 reference's key names/shapes (from the key map itself + torch oracle modules
-for layout-sensitive ops), convert, and check (a) full coverage of the flax
-tree, (b) numerical equivalence of conv/convT/linear layers against torch.
+for layout-sensitive ops), convert, and check (a) full coverage of the
+parameter tree, (b) numerical equivalence of conv/convT/linear layers
+(`models/layers.py`) against torch.
 """
 
 import numpy as np
@@ -12,9 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-import flax.linen as fnn
-
 from camouflaged_vlm_tpu.models import CascadeConfig, OVCOSCascade
+from camouflaged_vlm_tpu.models import layers as L
 from camouflaged_vlm_tpu.factory import make_bank_inputs, init_cascade_params
 from camouflaged_vlm_tpu.io.convert import (
     cascade_key_map,
@@ -56,7 +56,7 @@ def test_key_map_covers_every_param(tiny_setup):
 
 
 def test_roundtrip_synthetic_checkpoint(tiny_setup):
-    """Export the flax params to the reference's torch layout via the
+    """Export the params to the reference's torch layout via the
     production exporter, convert it back, and check bit-identity + full
     coverage both ways."""
     cfg, model, bank, params = tiny_setup
@@ -97,10 +97,9 @@ def test_conv_transform_matches_torch(rng):
         .detach().numpy().transpose(0, 2, 3, 1)
     )
     kernel = _transform("conv_w", conv.weight.detach().numpy())
-    mod = fnn.Conv(5, (4, 4), strides=(4, 4), padding="VALID")
-    got = mod.apply(
-        {"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(conv.bias.detach().numpy())}},
-        jnp.asarray(x),
+    got = L.conv(
+        {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(conv.bias.detach().numpy())},
+        jnp.asarray(x), 4, "VALID", jnp.float32,
     )
     np.testing.assert_allclose(np.asarray(got), want, atol=1e-5)
 
@@ -114,10 +113,9 @@ def test_convtranspose_transform_matches_torch(rng, k, s, pad_t, pad_f):
         .detach().numpy().transpose(0, 2, 3, 1)
     )
     kernel = _transform("convT_w", convt.weight.detach().numpy())
-    mod = fnn.ConvTranspose(6, (k, k), strides=(s, s), padding=pad_f, transpose_kernel=True)
-    got = mod.apply(
-        {"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(convt.bias.detach().numpy())}},
-        jnp.asarray(x),
+    got = L.conv_transpose(
+        {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(convt.bias.detach().numpy())},
+        jnp.asarray(x), s, pad_f, jnp.float32,
     )
     np.testing.assert_allclose(np.asarray(got), want, atol=1e-5)
 
@@ -194,7 +192,7 @@ def test_restore_train_params_host_train_state_format(tiny_setup, tmp_path):
     """`restore_train_params_host` owns the orbax TrainState key format: the
     partitioned trainable/frozen flat dicts round-trip (tuple keys come back
     as repr strings) into the original params tree. The export CLI and
-    scripts/ab_trained_numeric.py both restore through this helper."""
+    consumers restore through this helper."""
     from camouflaged_vlm_tpu.io.checkpoint import (
         restore_train_params_host,
         save_checkpoint,

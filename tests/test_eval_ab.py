@@ -1,7 +1,4 @@
-"""End-to-end EVAL-vs-EVAL A/B against the reference's own eval script
-(VERDICT round-3 missing #2: the last untested seam was the per-image host
-path — resize-pred-to-original-size, uint8 rounding, overlay handoff,
-classification bookkeeping, `test_ovcos_maskdecoder_edge.py:116-143`).
+"""End-to-end EVAL-vs-EVAL A/B against the reference's own eval script.
 
 Both sides run the COMPLETE eval pipeline on the same tiny synthetic OVCamo
 directory with IDENTICAL weights (the reference's torch modules randomised,
@@ -24,7 +21,7 @@ The single size-specific literal in the reference eval loop —
 `F.interpolate(pred_mask, (336, 336))` at :111 — is redirected to the tiny
 CLIP resolution (28); everything else runs the reference's code unmodified.
 
-Numeric-regime caveat (VERDICT r4 weak #4): random N(0, 0.05) weights leave
+Numeric-regime caveat: random N(0, 0.05) weights leave
 the tiny decoder's mask logits in a ±0.006 band, so sigmoid probabilities
 cluster at 0.5±0.001 — every threshold-sweep metric degenerates and fp16
 mask transfer would quantise the whole band to ~3 values. The fixture
@@ -214,7 +211,7 @@ def _build_pair(rng):
         jnp.asarray(inp), jnp.asarray(cimg), jnp.asarray(cmask),
         bank["prefix"], bank["suffix"], bank["eot_indices"], bank["bank_features"],
     )
-    params = model.init(jax.random.PRNGKey(0), *args, method=model.infer_test)
+    params = model.init(jax.random.PRNGKey(0))
     tree, missing, _ = convert_state_dict(_sd_numpy(tsam), cascade_key_map(cfg))
     assert not missing, missing
     params = merge_into_params(params, tree)

@@ -1,6 +1,6 @@
 """Golden activation parity against the REFERENCE'S OWN torch modules.
 
-Round-1 gap (VERDICT): every oracle was a re-derivation, so a shared
+Round-1 gap: every oracle was a re-derivation, so a shared
 misreading could pass tests yet break checkpoint parity. Here the oracles are
 the reference's actual classes loaded via tests/_reference_oracle.py:
 
@@ -44,11 +44,12 @@ from camouflaged_vlm_tpu.io.convert import (
     convert_state_dict,
     merge_into_params,
 )
+from camouflaged_vlm_tpu.models import mask_decoder, sam_encoder
 from camouflaged_vlm_tpu.models.cascade import CascadeConfig, OVCOSCascade
-from camouflaged_vlm_tpu.models.clip.custom_clip import CustomClip
+from camouflaged_vlm_tpu.models.clip import custom_clip
 from camouflaged_vlm_tpu.models.clip.model import AlphaClipConfig
-from camouflaged_vlm_tpu.models.mask_decoder import EdgeMaskDecoder, MaskDecoderConfig
-from camouflaged_vlm_tpu.models.sam_encoder import ImageEncoderViT, SamEncoderConfig
+from camouflaged_vlm_tpu.models.mask_decoder import MaskDecoderConfig
+from camouflaged_vlm_tpu.models.sam_encoder import SamEncoderConfig
 from camouflaged_vlm_tpu.models.two_way_transformer import TwoWayTransformerConfig
 
 from _reference_oracle import (
@@ -123,7 +124,7 @@ def _our_tiny_encoder_cfg(img_size=None, attn_impl="reference"):
         # pad-token semantics (the reference zero-pads after LN1, so pad k/v
         # equal the qkv bias) in BOTH implementations: the dense 'reference'
         # path and the compact pad-free layout used by 'flash'
-        # (ops/compact_window.py; ADVICE round-2 medium finding).
+        # (ops/compact_window.py).
         (80, "reference"),
         (80, "flash"),
     ],
@@ -133,10 +134,8 @@ def test_sam_encoder_golden_parity(rng, img_size, attn_impl):
 
     tenc = _torch_tiny_encoder(img_size=img_size)
     cfg = _our_tiny_encoder_cfg(img_size=img_size, attn_impl=attn_impl)
-    model = ImageEncoderViT(cfg)
-
     x = rng.standard_normal((2, img_size, img_size, 3)).astype(np.float32)
-    params = model.init(jax.random.PRNGKey(0), jnp.asarray(x), True)
+    params = {"params": sam_encoder.init(cfg, jax.random.PRNGKey(0))}
 
     shim = types.SimpleNamespace(encoder=cfg)
     sd = {f"enc.{k}": v for k, v in _sd_numpy(tenc).items()}
@@ -147,7 +146,7 @@ def test_sam_encoder_golden_parity(rng, img_size, attn_impl):
 
     with torch.no_grad():
         want, want_interm = tenc(torch.from_numpy(x).permute(0, 3, 1, 2), interm=True)
-    got, got_interm = model.apply(params, jnp.asarray(x), True)
+    got, got_interm = sam_encoder.apply(cfg, params["params"], jnp.asarray(x), True)
 
     _assert_close(np.moveaxis(np.asarray(got), 3, 1), want.numpy(), 2e-5, "neck")
     assert len(got_interm) == len(want_interm) == 2
@@ -180,8 +179,6 @@ def test_mask_decoder_golden_parity(rng):
         iou_head_hidden_dim=32,
         transformer=TwoWayTransformerConfig(embedding_dim=64, num_heads=4, mlp_dim=128),
     )
-    model = EdgeMaskDecoder(cfg)
-
     # B=1: the reference decoder's repeat_interleave(tokens.shape[0]) is
     # batch-1-only (mask_decoder_edge.py:156 — B>1 double-expands the batch);
     # our decoder fixes batch-N, so parity is only defined at B=1.
@@ -191,10 +188,7 @@ def test_mask_decoder_golden_parity(rng):
     sparse = rng.standard_normal((B, 2, C)).astype(np.float32) * 0.5
     dense = rng.standard_normal((B, g, g, C)).astype(np.float32) * 0.5
 
-    params = model.init(
-        jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(pe),
-        jnp.asarray(sparse), jnp.asarray(dense), False, None,
-    )
+    params = {"params": mask_decoder.init(cfg, jax.random.PRNGKey(0))}
     shim = types.SimpleNamespace(decoder=cfg)
     sd = {f"mask_decoder.{k}": v for k, v in _sd_numpy(tdec).items()}
     tree, missing, _ = convert_state_dict(sd, _mask_decoder_map(shim))
@@ -213,8 +207,8 @@ def test_mask_decoder_golden_parity(rng):
             dense_prompt_embeddings=nchw(dense),
             multimask_output=False,
         )
-    got_m, got_e, got_iou = model.apply(
-        params, jnp.asarray(feats), jnp.asarray(pe), jnp.asarray(sparse),
+    got_m, got_e, got_iou = mask_decoder.apply(
+        cfg, params["params"], jnp.asarray(feats), jnp.asarray(pe), jnp.asarray(sparse),
         jnp.asarray(dense), False, None,
     )
     _assert_close(got_m, want_m.numpy(), 3e-5, "masks")
@@ -287,8 +281,6 @@ def test_custom_clip_golden_parity(rng):
 
     tcc = _torch_custom_clip()
     cfg = _our_clip_cfg()
-    model = CustomClip(cfg)
-
     n_cls = len(TEST_NAMES)
     bank = rng.standard_normal((n_cls, cfg.embed_dim)).astype(np.float32) * 0.1
     tcc.load_text_features(
@@ -303,10 +295,7 @@ def test_custom_clip_golden_parity(rng):
     image = rng.standard_normal((B, 28, 28, 3)).astype(np.float32)
     alpha = rng.standard_normal((B, 28, 28, 1)).astype(np.float32)
 
-    params = model.init(
-        jax.random.PRNGKey(0), jnp.asarray(image), jnp.asarray(alpha),
-        jnp.asarray(prefix), jnp.asarray(suffix), jnp.asarray(eot), jnp.asarray(bank),
-    )
+    params = {"params": custom_clip.init(cfg, jax.random.PRNGKey(0))}
     sd = _sd_numpy(tcc)
     m = clip_key_map(cfg, torch_prefix="", flax_prefix="clip_model",
                      custom_clip_layout=True)
@@ -321,8 +310,8 @@ def test_custom_clip_golden_parity(rng):
             torch.from_numpy(np.moveaxis(alpha, 3, 1).copy()),
             train=False,
         )
-    g_img, g_txt, g_pred, g_logits = model.apply(
-        params, jnp.asarray(image), jnp.asarray(alpha), jnp.asarray(prefix),
+    g_img, g_txt, g_pred, g_logits = custom_clip.apply(
+        cfg, params["params"], jnp.asarray(image), jnp.asarray(alpha), jnp.asarray(prefix),
         jnp.asarray(suffix), jnp.asarray(eot), jnp.asarray(bank),
     )
     _assert_close(g_img, w_img.numpy(), 2e-5, "image_features")
@@ -391,7 +380,7 @@ def test_cascade_infer_test_golden_parity(rng):
         jnp.asarray(inp), jnp.asarray(cimg), jnp.asarray(cmask),
         jnp.asarray(prefix), jnp.asarray(suffix), jnp.asarray(eot), jnp.asarray(bank),
     )
-    params = model.init(jax.random.PRNGKey(0), *args, method=model.infer_test)
+    params = model.init(jax.random.PRNGKey(0))
 
     sd = _sd_numpy(tsam)
     tree, missing, _ = convert_state_dict(sd, cascade_key_map(cfg))
@@ -404,7 +393,7 @@ def test_cascade_infer_test_golden_parity(rng):
             torch.from_numpy(np.moveaxis(cimg, 3, 1).copy()),
             torch.from_numpy(np.moveaxis(cmask, 3, 1).copy()),
         )
-    got = model.apply(params, *args, method=model.infer_test)
+    got = model.infer_test(params, *args)
     _assert_close(
         np.moveaxis(np.asarray(got), 3, 1), want.numpy(), 5e-4, "infer_test masks"
     )

@@ -89,9 +89,9 @@ def test_train_gradients_match_reference():
         _, _, tpred, _ = tsam.maple_alpha_clip_process(
             tsam.clip_image, tsam.clip_mask
         )
-    _, _, _, jpred, _ = model.apply(
+    _, _, _, jpred, _ = model.stage1(
         params, jnp.asarray(inp), jnp.asarray(cimg), jnp.asarray(cmask),
-        prefix, suffix, eot, train_bank, method=model.stage1,
+        prefix, suffix, eot, train_bank,
     )
     assert int(tpred[0]) == int(np.asarray(jpred)[0])
 
@@ -116,7 +116,7 @@ def test_train_gradients_match_reference():
 
     # ---- ours: jax.grad of the training loss ----
     def loss_fn(p):
-        masks, edges = model.apply(
+        masks, edges = model(
             p, jnp.asarray(inp), jnp.asarray(cimg), jnp.asarray(cmask),
             prefix, suffix, eot, train_bank,
         )

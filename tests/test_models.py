@@ -7,22 +7,17 @@ import pytest
 
 from camouflaged_vlm_tpu.models import (
     SamEncoderConfig,
-    ImageEncoderViT,
     MaskDecoderConfig,
-    EdgeMaskDecoder,
     TwoWayTransformerConfig,
-    TwoWayTransformer,
     CascadeConfig,
     OVCOSCascade,
 )
-from camouflaged_vlm_tpu.models.position_embedding import (
-    PositionEmbeddingRandom,
-    random_position_embedding,
-)
+from camouflaged_vlm_tpu.models import mask_decoder, sam_encoder, two_way_transformer
+from camouflaged_vlm_tpu.models.position_embedding import random_position_embedding
 from camouflaged_vlm_tpu.models.clip import (
     AlphaClipConfig,
-    CustomClip,
     build_class_prompt_bank,
+    custom_clip,
     tokenize,
 )
 
@@ -54,16 +49,15 @@ def tiny_cascade():
         jnp.asarray(bank.eot_indices),
         bank_feat,
     )
-    params = model.init(jax.random.PRNGKey(0), *args, method=model.infer_cascade)
+    params = model.init(jax.random.PRNGKey(0))
     return cfg, model, params, args
 
 
 def test_encoder_shapes_and_interm():
     cfg = SamEncoderConfig.tiny()
-    enc = ImageEncoderViT(cfg)
     x = jnp.zeros((2, cfg.img_size, cfg.img_size, 3))
-    params = enc.init(jax.random.PRNGKey(0), x, interm=True)
-    y, interm = enc.apply(params, x, interm=True)
+    params = sam_encoder.init(cfg, jax.random.PRNGKey(0))
+    y, interm = sam_encoder.apply(cfg, params, x, interm=True)
     assert y.shape == (2, cfg.grid, cfg.grid, cfg.out_chans)
     assert len(interm) == len(cfg.global_attn_indexes)
     for t in interm:
@@ -73,9 +67,8 @@ def test_encoder_shapes_and_interm():
 def test_encoder_freeze_rule_param_paths():
     """The finetune freeze rule needs prompt_generator params under one subtree."""
     cfg = SamEncoderConfig.tiny()
-    enc = ImageEncoderViT(cfg)
-    params = enc.init(jax.random.PRNGKey(0), jnp.zeros((1, cfg.img_size, cfg.img_size, 3)))
-    keys = params["params"].keys()
+    params = sam_encoder.init(cfg, jax.random.PRNGKey(0))
+    keys = params.keys()
     assert "prompt_generator" in keys
     flat = jax.tree_util.tree_flatten_with_path(params)[0]
     prompt_params = [p for p, _ in flat if any("prompt_generator" in str(k) for k in p)]
@@ -96,14 +89,13 @@ def test_position_embedding_matches_reference_formula(rng):
 
 def test_two_way_transformer_shapes():
     cfg = TwoWayTransformerConfig(embedding_dim=32, num_heads=4, mlp_dim=64)
-    twt = TwoWayTransformer(cfg)
     B, N, T, S = 2, 16, 6, 2
     img = jnp.ones((B, N, 32))
     pe = jnp.ones((B, N, 32))
     tok = jnp.ones((B, T, 32))
     cond = jnp.ones((B, S, 32))
-    params = twt.init(jax.random.PRNGKey(0), img, pe, tok, cond)
-    q, k = twt.apply(params, img, pe, tok, cond)
+    params = two_way_transformer.init(cfg, jax.random.PRNGKey(0))
+    q, k = two_way_transformer.apply(cfg, params, img, pe, tok, cond)
     assert q.shape == (B, T, 32) and k.shape == (B, N, 32)
 
 
@@ -112,15 +104,14 @@ def test_mask_decoder_multimask_slicing():
         transformer_dim=32,
         transformer=TwoWayTransformerConfig(embedding_dim=32, num_heads=4, mlp_dim=64),
     )
-    dec = EdgeMaskDecoder(cfg)
     B, h, w = 2, 4, 4
     img = jnp.ones((B, h, w, 32))
     pe = jnp.ones((h, w, 32))
     sparse = jnp.ones((B, 2, 32))
     dense = jnp.zeros((B, h, w, 32))
-    params = dec.init(jax.random.PRNGKey(0), img, pe, sparse, dense)
-    m1, e1, i1 = dec.apply(params, img, pe, sparse, dense, multimask_output=False)
-    m3, e3, i3 = dec.apply(params, img, pe, sparse, dense, multimask_output=True)
+    params = mask_decoder.init(cfg, jax.random.PRNGKey(0))
+    m1, e1, i1 = mask_decoder.apply(cfg, params, img, pe, sparse, dense, multimask_output=False)
+    m3, e3, i3 = mask_decoder.apply(cfg, params, img, pe, sparse, dense, multimask_output=True)
     assert m1.shape == (B, 1, 4 * h, 4 * w) and i1.shape == (B, 1)
     assert m3.shape == (B, 3, 4 * h, 4 * w) and i3.shape == (B, 3)
     assert e1.shape == (B, 1, 4 * h, 4 * w)
@@ -196,7 +187,6 @@ def test_clip_prompt_bank_structure():
 def test_clip_alpha_sensitivity():
     """Image features must depend on the alpha channel (the Alpha-CLIP core idea)."""
     cfg = AlphaClipConfig.tiny()
-    model = CustomClip(cfg)
     rng = np.random.default_rng(2)
     tok_emb = rng.standard_normal((cfg.vocab_size, cfg.transformer_width)).astype(np.float32) * 0.02
     bank = build_class_prompt_bank(["cat", "owl"], tok_emb, n_ctx=cfg.n_ctx)
@@ -205,21 +195,21 @@ def test_clip_alpha_sensitivity():
     a1 = jnp.ones((1, 28, 28, 1))
     a0 = jnp.zeros((1, 28, 28, 1))
     args = (jnp.asarray(bank.prefix), jnp.asarray(bank.suffix), jnp.asarray(bank.eot_indices), bank_feat)
-    params = model.init(jax.random.PRNGKey(0), img, a1, *args)
-    f1, _, _, _ = model.apply(params, img, a1, *args)
-    f0, _, _, _ = model.apply(params, img, a0, *args)
+    params = custom_clip.init(cfg, jax.random.PRNGKey(0))
+    f1, _, _, _ = custom_clip.apply(cfg, params, img, a1, *args)
+    f0, _, _, _ = custom_clip.apply(cfg, params, img, a0, *args)
     assert float(jnp.abs(f1 - f0).max()) > 1e-6
 
 
 def test_cascade_end_to_end(tiny_cascade):
     cfg, model, params, args = tiny_cascade
-    probs, pred, score = model.apply(params, *args, method=model.infer_cascade)
+    probs, pred, score = model.infer_cascade(params, *args)
     B = args[0].shape[0]
     assert probs.shape == (B, cfg.inp_size, cfg.inp_size, 1)
     assert np.all(np.asarray(probs) >= 0) and np.all(np.asarray(probs) <= 1)
     assert pred.shape == (B,) and score.shape == (B, 3)
 
-    masks, edges = model.apply(params, *args)
+    masks, edges = model(params, *args)
     assert masks.shape == (B, cfg.inp_size, cfg.inp_size, 1)
     assert edges.shape == (B, cfg.inp_size, cfg.inp_size, 1)
 
@@ -227,30 +217,27 @@ def test_cascade_end_to_end(tiny_cascade):
 @pytest.mark.slow  # ~30s double-compile; determinism also pinned by seeded-loader tests
 def test_cascade_jit_deterministic(tiny_cascade):
     cfg, model, params, args = tiny_cascade
-    f = jax.jit(lambda p, *a: model.apply(p, *a, method=model.infer_cascade))
+    f = jax.jit(model.infer_cascade)
     p1 = f(params, *args)
     p2 = f(params, *args)
     np.testing.assert_array_equal(np.asarray(p1[0]), np.asarray(p2[0]))
 
 
 def test_encoder_attn_impls_agree():
-    """'flash' (rel@sel path; XLA fallback on CPU) == 'reference' dense bias
+    """'flash' (rel@sel path) == 'aug_xla' == 'reference' dense bias
     through the full tiny encoder (windowed + global blocks)."""
-    from camouflaged_vlm_tpu.models.sam_encoder import ImageEncoderViT, SamEncoderConfig
-
     rng = np.random.default_rng(3)
     x = jnp.asarray(rng.standard_normal((2, 64, 64, 3)), jnp.float32)
     outs = {}
     params = None
     for impl in ("reference", "flash", "aug_xla"):
         cfg = SamEncoderConfig.tiny(attn_impl=impl)
-        enc = ImageEncoderViT(cfg)
         if params is None:
-            params = enc.init(jax.random.PRNGKey(0), x)
+            params = sam_encoder.init(cfg, jax.random.PRNGKey(0))
             params = jax.tree.map(
                 lambda p: p + 0.01 * np.random.default_rng(1).standard_normal(p.shape).astype(p.dtype),
                 params,
             )
-        outs[impl] = np.asarray(enc.apply(params, x))
+        outs[impl] = np.asarray(sam_encoder.apply(cfg, params, x))
     np.testing.assert_allclose(outs["flash"], outs["reference"], atol=1e-4)
     np.testing.assert_allclose(outs["aug_xla"], outs["reference"], atol=1e-4)

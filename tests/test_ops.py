@@ -162,46 +162,27 @@ def test_fft_highpass_matmul_matches_fft_oracle(rng):
         np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_linear_pallas_matches_dense(rng, monkeypatch):
-    """Pallas matmul kernel (interpret mode) == x @ w + b (+ gelu)."""
-    from camouflaged_vlm_tpu.ops import linear as lin
-
-    orig = lin.pl.pallas_call
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        kw.pop("compiler_params", None)
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(lin.pl, "pallas_call", interp)
-
-    M, K, N = 256, 64, 384
-    x = jnp.asarray(rng.standard_normal((M, K)), jnp.float32)
-    w = jnp.asarray(rng.standard_normal((K, N)) * 0.1, jnp.float32)
-    b = jnp.asarray(rng.standard_normal((1, N)), jnp.float32)
-    got = lin.linear_pallas(x, w, b, block_m=128, block_n=128)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(x @ w + b), atol=2e-4)
-    got_g = lin.linear_pallas(x, w, b, block_m=128, block_n=128, activation="gelu_tanh")
+def test_patch_embed_matmul_matches_conv(rng):
+    """The encoder's patch embed (rearrange + one matmul) == a 16x16,
+    stride-16 VALID convolution with the same (kh, kw, in, out) kernel."""
     import jax
-    np.testing.assert_allclose(
-        np.asarray(got_g),
-        np.asarray(jax.nn.gelu(x @ w + b, approximate=True)),
-        atol=2e-4,
-    )
+
+    from camouflaged_vlm_tpu.models import layers as L
+    from camouflaged_vlm_tpu.models.sam_encoder import patch_embed
+
+    x = jnp.asarray(rng.standard_normal((2, 64, 48, 3)), jnp.float32)
+    p = L.conv_init(jax.random.PRNGKey(0), 16, 16, 3, 32, bias=True)
+    p["bias"] = jnp.asarray(rng.standard_normal(32), jnp.float32)
+    got = patch_embed(p, x, 16, jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        want = L.conv(p, x, 16, "VALID", jnp.float32)
+    assert got.shape == (2, 4, 3, 32)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-4)
 
 
-def test_proj_from_heads_matches_dense(rng, monkeypatch):
-    """Head-leading projection kernel == moveaxis + reshape + matmul."""
+def test_proj_from_heads_matches_dense(rng):
+    """Head-leading projection == moveaxis + reshape + matmul."""
     from camouflaged_vlm_tpu.ops import linear as lin
-
-    orig = lin.pl.pallas_call
-
-    def interp(*args, **kw):
-        kw["interpret"] = True
-        kw.pop("compiler_params", None)
-        return orig(*args, **kw)
-
-    monkeypatch.setattr(lin.pl, "pallas_call", interp)
 
     B, heads, T, S, d, out = 2, 4, 2, 64, 32, 96
     x = jnp.asarray(rng.standard_normal((B, heads, T, S, d)), jnp.float32)

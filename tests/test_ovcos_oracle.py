@@ -1,6 +1,4 @@
-"""OVCOS class-aware metric parity against the REFERENCE'S OWN metricer
-(VERDICT round-1 item #6: the adp/changeable IOU and the adp/max/avg
-aggregation were previously only re-derived, never oracle-checked).
+"""OVCOS class-aware metric parity against the REFERENCE'S OWN metricer.
 
 Oracle: `/root/reference/recorder/ovcos_metricer.py` loaded verbatim with its
 py_sod_metrics bases supplied by the reference's `recorder/sod_metric.py`

@@ -80,9 +80,7 @@ def test_cascade_inference_with_real_test_bank():
     inp = jnp.asarray(rng.standard_normal((B, cfg.inp_size, cfg.inp_size, 3)), jnp.float32)
     cimg = jnp.asarray(rng.standard_normal((B, cfg.clip_size, cfg.clip_size, 3)), jnp.float32)
     cmask = jnp.full((B, cfg.clip_size, cfg.clip_size, 1), 1.923, jnp.float32)
-    probs, pred, score = jax.jit(
-        lambda p, *a: model.apply(p, *a, method=model.infer_cascade)
-    )(params, inp, cimg, cmask, bank["prefix"], bank["suffix"],
+    probs, pred, score = jax.jit(model.infer_cascade)(params, inp, cimg, cmask, bank["prefix"], bank["suffix"],
       bank["eot_indices"], bank["bank_features"])
     assert probs.shape == (B, cfg.inp_size, cfg.inp_size, 1)
     assert score.shape == (B, 61)

@@ -1,4 +1,4 @@
-"""Kill/resume cycle for the train CLI (VERDICT round-1 item #5).
+"""Kill/resume cycle for the train CLI.
 
 A run killed after epoch 2 and resumed with --resume must produce EXACTLY the
 state of an uninterrupted run: same final params (the optimizer step count

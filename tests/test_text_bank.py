@@ -13,19 +13,15 @@ from camouflaged_vlm_tpu.cli.precompute_text_bank import (
     encode_text_features,
 )
 from camouflaged_vlm_tpu.data.templates import TEMPLATE_SETS
-from camouflaged_vlm_tpu.models.clip import AlphaClipConfig, ClipTextTower
+from camouflaged_vlm_tpu.models.clip import AlphaClipConfig
+from camouflaged_vlm_tpu.models.clip import model as clip_model
 
 
 @pytest.fixture(scope="module")
 def tiny_text_tower():
     cfg = AlphaClipConfig.tiny()
-    tower = ClipTextTower(cfg)
     rng = np.random.default_rng(0)
-    import jax.numpy as jnp
-
-    dummy = jnp.zeros((1, cfg.context_length, cfg.transformer_width))
-    eot = jnp.zeros((1,), jnp.int32)
-    params = tower.init(jax.random.PRNGKey(0), dummy, eot, [])["params"]
+    params = clip_model.init_text(cfg, jax.random.PRNGKey(0))
     token_embedding = rng.standard_normal(
         (cfg.vocab_size, cfg.transformer_width)
     ).astype(np.float32) * 0.02
@@ -77,7 +73,7 @@ def test_gpt_bank_and_combine(tiny_text_tower, tmp_path):
 
 def test_gpt_bank_empty_prompt_list_raises(tiny_text_tower, tmp_path):
     """A class whose CuPL prompt list is empty must fail with a clear error,
-    not a bare IndexError from the pad-to-bucket path (ADVICE round-2)."""
+    not a bare IndexError from the pad-to-bucket path."""
     cfg, params, tok = tiny_text_tower
     path = tmp_path / "cupl.json"
     path.write_text(json.dumps({"cat": []}))
@@ -88,8 +84,7 @@ def test_gpt_bank_empty_prompt_list_raises(tiny_text_tower, tmp_path):
 def test_cli_mode_order_follows_reference(monkeypatch, tiny_text_tower, tmp_path):
     """The ensembling chain is order-sensitive; the CLI must fold banks in
     the reference's fixed sequence imagenet80 -> camoprompts -> CuPL-GPT ->
-    attributes regardless of --templates spelling (ADVICE round-2;
-    `alphaCLIP.py:131-242`)."""
+    attributes regardless of --templates spelling."""
     import camouflaged_vlm_tpu.cli.precompute_text_bank as ptb
 
     cfg, params, tok = tiny_text_tower

@@ -136,13 +136,13 @@ def test_hoisted_text_features_grads_match_bank_path(tiny_train_setup, rng):
     batch = _make_batch(cfg, bank, rng)
     trainable, frozen = partition_params(params)
 
-    text_features = model.apply(
+    text_features = model.encode_class_text_features(
         params, bank["prefix"], bank["suffix"], bank["eot_indices"],
-        bank["bank_features"], method=model.encode_class_text_features,
+        bank["bank_features"],
     )
 
     def loss_bank(t):
-        masks, edges = model.apply(
+        masks, edges = model(
             combine_params(t, frozen), batch["inp"], batch["clip_image"],
             batch["clip_mask"], bank["prefix"], bank["suffix"],
             bank["eot_indices"], bank["bank_features"],
@@ -150,9 +150,9 @@ def test_hoisted_text_features_grads_match_bank_path(tiny_train_setup, rng):
         return segmentation_loss(masks, edges, batch["gt"], "iou")[0]
 
     def loss_hoist(t):
-        masks, edges = model.apply(
+        masks, edges = model.forward_with_text(
             combine_params(t, frozen), batch["inp"], batch["clip_image"],
-            batch["clip_mask"], text_features, method=model.forward_with_text,
+            batch["clip_mask"], text_features,
         )
         return segmentation_loss(masks, edges, batch["gt"], "iou")[0]
 
@@ -222,7 +222,9 @@ def test_orbax_checkpoint_roundtrip(tiny_train_setup, tmp_path):
 def test_maple_train_step_updates_only_prompt_learner(tiny_train_setup, rng):
     """MaPLe prompt training (reference dassl trainer equivalent,
     cocotrainers/mapleAlphaCLIP.py:300-386): CE loss decreases and ONLY
-    prompt-learner params move."""
+    prompt-learner params move. Eight steps at base lr 2e-3 (two warmup
+    steps at 1e-5, then the cosine): the loss falls on each init seed 0-4,
+    where five steps at 1e-2 overshot on seeds 0 and 4."""
     from camouflaged_vlm_tpu.train import (
         MAPLE_TRAINABLE_SUBTREES,
         make_maple_optimizer,
@@ -230,18 +232,10 @@ def test_maple_train_step_updates_only_prompt_learner(tiny_train_setup, rng):
     )
 
     cfg, model, bank, params = tiny_train_setup
-    tx = make_maple_optimizer(base_lr=0.01, total_epochs=5, steps_per_epoch=2)
+    tx = make_maple_optimizer(base_lr=2e-3, total_epochs=5, steps_per_epoch=2)
     state = create_train_state(params, tx, MAPLE_TRAINABLE_SUBTREES)
 
-    class ClipView:
-        @staticmethod
-        def apply(p, img, alpha, pre, suf, eot, feats):
-            return model.apply(
-                p, img, alpha, pre, suf, eot, feats,
-                method=lambda m, *a: m.clip_model(*a),
-            )
-
-    step = jax.jit(make_maple_train_step(ClipView, tx))
+    step = jax.jit(make_maple_train_step(model.clip_forward, tx))
     B = 2
     batch = {
         "clip_image": jnp.asarray(
@@ -279,7 +273,7 @@ def test_maple_train_step_updates_only_prompt_learner(tiny_train_setup, rng):
 
     losses = [float(metrics["loss"])]
     s = new_state
-    for _ in range(4):
+    for _ in range(7):
         s, m = step(s, batch)
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0]
